@@ -1,0 +1,42 @@
+"""Rotated anchor grids (NumPy), a copy of ``s2anet_tpu/models/anchors.py``.
+
+Base size = the level's stride; one anchor per cell by default (scale 4,
+ratio 1, angle 0); centres at ``0.5 * (stride - 1)`` past each cell origin.
+Rows are in (h, w) row-major order, the order the head flattens its NHWC
+outputs in.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+
+import numpy as np
+
+
+def base_anchors(base_size: float, scales=(4.0,), ratios=(1.0,),
+                 angles=(0.0,)) -> np.ndarray:
+    """``[num_base, 3]`` of (w, h, angle)."""
+    out = []
+    for r, s, a in itertools.product(ratios, scales, angles):
+        wr = math.sqrt(r)
+        out.append((base_size * wr * s, base_size / wr * s, a))
+    return np.array(out, dtype=np.float32).reshape(-1, 3)
+
+
+def grid_anchors(featmap_size, stride, scales=(4.0,), ratios=(1.0,),
+                 angles=(0.0,)) -> np.ndarray:
+    """``[H*W*A, 5]`` float32 anchors (x, y, w, h, theta) in image pixels."""
+    h, w = featmap_size
+    base = base_anchors(float(stride), tuple(scales), tuple(ratios),
+                        tuple(angles))
+    xs = np.arange(w, dtype=np.float32) * stride + 0.5 * (stride - 1)
+    ys = np.arange(h, dtype=np.float32) * stride + 0.5 * (stride - 1)
+    ctr = np.stack([np.tile(xs, h), np.repeat(ys, w)], axis=1)  # [H*W, 2]
+    na = base.shape[0]
+    anchors = np.concatenate(
+        [np.repeat(ctr[:, None, :], na, axis=1),
+         np.broadcast_to(base[None], (h * w, na, 3))],
+        axis=-1,
+    )
+    return anchors.reshape(-1, 5)

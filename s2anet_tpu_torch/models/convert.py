@@ -1,0 +1,125 @@
+"""JAX variables -> the port's ``state_dict``.
+
+The inverse of ``s2anet_tpu/models/torch_import.py::convert_reference_s2anet``:
+it maps the JAX ``{"params", "batch_stats"}`` tree (nested dicts of arrays,
+BatchNorms unfolded) to the reference torch key layout that the port's
+modules use, transposing conv kernels HWIO -> OIHW. ``or_weight``
+``[Cout/8, Cin, 1, 3, 3]`` is already in torch layout and is copied as it is.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .resnet import ARCH_SETTINGS
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _oihw(kernel) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+
+
+def state_dict_from_jax(variables, arch: str = "resnet50") -> Dict[str, torch.Tensor]:
+    """JAX S2ANet variables (unfolded BatchNorms) -> port ``state_dict``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(dst, src, bias=True):
+        sd[dst + ".weight"] = _oihw(src["kernel"])
+        if bias:
+            sd[dst + ".bias"] = _t(src["bias"])
+
+    def bn(dst, p, s):
+        sd[dst + ".weight"] = _t(p["scale"])
+        sd[dst + ".bias"] = _t(p["bias"])
+        sd[dst + ".running_mean"] = _t(s["mean"])
+        sd[dst + ".running_var"] = _t(s["var"])
+        sd[dst + ".num_batches_tracked"] = torch.tensor(0)
+
+    bp, bs = params["backbone"], stats["backbone"]
+    conv("backbone.backbone.0.0", bp["conv1"], bias=False)
+    bn("backbone.backbone.0.1", bp["bn1"], bs["bn1"])
+    kind, layer_cfg = ARCH_SETTINGS[arch]
+    n_convs = 2 if kind == "basic" else 3
+    for stage, n_blocks in enumerate(layer_cfg, start=1):
+        prefix = "backbone.backbone.1.1" if stage == 1 else f"backbone.backbone.{stage}"
+        for b in range(n_blocks):
+            src = f"layer{stage}_{b}"
+            dst = f"{prefix}.{b}"
+            for c in range(1, n_convs + 1):
+                conv(f"{dst}.conv{c}", bp[src][f"conv{c}"], bias=False)
+                bn(f"{dst}.bn{c}", bp[src][f"bn{c}"], bs[src][f"bn{c}"])
+            if "downsample_conv" in bp[src]:
+                conv(f"{dst}.downsample.0", bp[src]["downsample_conv"], bias=False)
+                bn(f"{dst}.downsample.1", bp[src]["downsample_bn"],
+                   bs[src]["downsample_bn"])
+
+    neck = params["neck"]
+    i = 0
+    while f"lateral_{i}" in neck:
+        conv(f"neck.lateral_convs.{i}", neck[f"lateral_{i}"])
+        i += 1
+    i = 0
+    while f"fpn_{i}" in neck:
+        conv(f"neck.fpn_convs.{i}", neck[f"fpn_{i}"])
+        i += 1
+
+    sd.update(head_state_dict_from_jax(params["head"], prefix="head."))
+    return sd
+
+
+def head_state_dict_from_jax(hp, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``S2ANetHead`` params -> the port head's ``state_dict`` keys."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(dst, src):
+        sd[prefix + dst + ".weight"] = _oihw(src["kernel"])
+        sd[prefix + dst + ".bias"] = _t(src["bias"])
+
+    for name in ("fam_reg_ls", "fam_cls_ls", "odm_reg_ls", "odm_cls_ls"):
+        j = 0
+        while f"conv{j}" in hp[name]:
+            conv(f"{name}.{j}.0", hp[name][f"conv{j}"])
+            j += 1
+    for name in ("fam_reg_head", "fam_cls_head", "odm_reg_head", "odm_cls_head"):
+        conv(name, hp[name])
+    sd[prefix + "align_conv.deform_conv.weight"] = _oihw(hp["align_weight"])
+    sd[prefix + "or_conv.weight"] = _t(hp["or_weight"])
+    sd[prefix + "or_conv.bias"] = _t(hp["or_bias"])
+    return sd
+
+
+def save_jax_npz(path, variables) -> None:
+    """Write a nested-dict variables tree as one ``.npz`` with ``/``-joined
+    keys (``params/backbone/conv1/kernel``)."""
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else str(k), v)
+        else:
+            flat[prefix] = np.asarray(node, dtype=np.float32)
+
+    walk("", variables)
+    np.savez(path, **flat)
+
+
+def load_jax_npz(path):
+    """Read a variables tree written by :func:`save_jax_npz`."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return tree
