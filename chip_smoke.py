@@ -7,13 +7,14 @@ Phases, each printing its result; any failure exits non-zero before the
 last line:
 
   1. card      name and power limit (nvidia-smi), torch and CUDA versions
-  2. build     compile the CUDA kernels from csrc/ (nvcc), build seconds
+  2. build     compile the CUDA kernels from csrc/ (one nvcc per source, all
+               at once), build seconds, registers and spills
   3. kernel 1  AlignConv forward vs its plain version: P3 shapes in bf16
                and in f32 (TF32 off), and 1x1 / 2x2 / odd maps with offsets
                that leave the image
   4. kernel 2  rotated IoU vs the plain version (random and degenerate
                boxes), NMS bitmask and keep masks vs the plain NMS
-  5. main path python -m s2anet_tpu_torch.predict on 8 synthetic 1024x1024
+  5. serving   python -m s2anet_tpu_torch.predict on 8 synthetic 1024x1024
                chips (R-50, 15 classes, bf16, folded BN, seeded weights),
                launch counts of every kernel; outputs finite with the right
                shapes; at score_thr 0.005 the kernel path against the plain
@@ -23,14 +24,42 @@ last line:
   6. times     chips/s at batch 8 (2 warm-up batches, 7 timed), peak device
                memory, each kernel against its plain version (CUDA events),
                and a profiler table of one batch (--out, default runs/chip_smoke/)
+  7. kernel 3  AlignConv backward (dx, dW) vs autograd of the plain forward:
+               P3 shapes (batch 2, 128^2, C = Cout = 256) in f32 (TF32 off)
+               and bf16, odd, 1x1 and off-image maps; f32 within 1e-3 and
+               bf16 within 2e-2 of the largest reference value; P3-P7 times
+  8. kernels 5, 6  BN moment and pair sums vs their plain versions at the
+               R-50 stem and a layer-4 shape, f32 and bf16, within 1e-5 of
+               the sum of magnitudes; times over the 53 BatchNorm inputs of
+               one R-50 1024^2 batch-8 step against torch.batch_norm_stats,
+               torch.batch_norm_backward_reduce, and the whole BN forward
+               and backward against cuDNN's F.batch_norm
+  9. training  python -m s2anet_tpu_torch.train at R-50 1024^2 batch 8 bf16,
+               clamp 6.0, 3 warm-up and 5 timed steps: finite losses,
+               ms/step, img/s, peak memory, launches per step of every
+               kernel (AlignConv fwd/bwd 5, moments/pair 53, IoU > 0), and a
+               profiler table of one step with the device's idle share
+ 10. step vs plain  one R-18 256^2 batch-2 f32 train step (TF32 off, cuDNN
+               deterministic), same weights and batch: the kernel path's
+               loss items within 1e-4 (relative) of the plain path's; on
+               the kernel path's forward, every gradient from the backward
+               kernels within 1e-3 (of its largest value) of the gradient
+               from the plain backward; the all-plain path's gradients and
+               their spread under a 1e-7 input perturbation are reported
 
-The line before the last is ``{"kernels": [...]}``; the last is
+The line before the last is ``{"kernels": [...]}``: per kernel its launches
+on its path (training, or serving for the NMS kernels), its largest error
+against the plain version, its time, the plain version's and the library
+call's time where there is one, and the least time the card could take
+(``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
+over 989 TFLOP/s bf16 or 67 TFLOP/s f32, H100 SXM). The last line is
 ``{"ok": true, "device": {...}}``. Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -42,6 +71,15 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 BATCH, SIZE, SEED = 8, 1024, 0
+# H100 SXM peaks (NVIDIA's data sheet; full rates at 700 W)
+HBM_BYTES_S = 3.35e12
+BF16_FLOP_S = 989e12
+F32_FLOP_S = 67e12
+# float32 operations of one iou_pair (csrc/iou_nms_rotated.cu), counted
+# with a division or a transcendental as one: a pair past the bounding-
+# circle test (two clip passes of 4 edges x 4 half-planes, ~30 each, plus
+# the corners) and a pair the test rejects
+IOU_PAIR_OPS, IOU_REJECT_OPS = 1100, 15
 
 
 def say(msg: str) -> None:
@@ -77,6 +115,26 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float, flop_s: float):
+    """(ms, "bytes" | "operations"): the least time of a kernel that reads
+    and writes ``nbytes`` once and does ``ops`` at ``flop_s``."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_S
+    t_ops = 1e3 * ops / flop_s
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def iou_ops(torch, b1, b2):
+    """Operations of the IoU kernel on [N, 5] x [M, 5]: pairs whose
+    bounding circles meet (and with nonzero areas) run the full routine."""
+    r1 = 0.5 * torch.sqrt(b1[:, 2] ** 2 + b1[:, 3] ** 2)
+    r2 = 0.5 * torch.sqrt(b2[:, 2] ** 2 + b2[:, 3] ** 2)
+    d2 = torch.cdist(b1[:, :2].double(), b2[:, :2].double()) ** 2
+    full = ((d2 <= (r1[:, None] + r2[None, :]).double() ** 2)
+            & (b1[:, 2:4].prod(1) > 1e-14)[:, None]
+            & (b2[:, 2:4].prod(1) > 1e-14)[None, :]).sum().item()
+    return full * IOU_PAIR_OPS + (b1.shape[0] * b2.shape[0] - full) * IOU_REJECT_OPS
 
 
 def match_1to1(a, la, b, lb, iou=None) -> int:
@@ -132,6 +190,328 @@ def clustered_candidates(torch, gen, b, k, dev):
     return boxes, labels, valid
 
 
+def bn_input_shapes(torch, arch: str, batch: int, size: int):
+    """[N, C, H, W] of every BatchNorm input of the backbone, in order, from
+    a forward on the meta device (no memory, no kernels)."""
+    from s2anet_tpu_torch.models.bn import BatchNorm2d
+    from s2anet_tpu_torch.models.resnet import ResNet
+
+    net = ResNet(arch).to("meta").eval()
+    shapes = []
+    for m in net.modules():
+        if isinstance(m, BatchNorm2d):
+            m.register_forward_pre_hook(lambda mod, inp: shapes.append(tuple(inp[0].shape)))
+    with torch.no_grad():
+        net(torch.empty(batch, 3, size, size, device="meta"))
+    return shapes
+
+
+def phase_deform_bwd(torch, dev, gen, levels):
+    """Kernel 3 against autograd of the plain forward; P3-P7 times."""
+    from s2anet_tpu_torch.ops import deform_conv as dc
+
+    say("== 7. kernel 3: AlignConv backward vs plain")
+    worst = 0.0
+    cases = [  # name, (b, h, w, c, cout), offset scale, dtype, tolerance
+        ("P3 f32", (2, 128, 128, 256, 256), 1.5, torch.float32, 1e-3),
+        ("P3 bf16", (2, 128, 128, 256, 256), 1.5, torch.bfloat16, 2e-2),
+        ("odd 19x41 C40->24", (1, 19, 41, 40, 24), 6.0, torch.float32, 1e-3),
+        ("odd 19x41 C40->24 bf16", (1, 19, 41, 40, 24), 6.0, torch.bfloat16, 2e-2),
+        ("1x1", (2, 1, 1, 256, 256), 3.0, torch.float32, 1e-3),
+        ("odd 3x37 bf16", (3, 3, 37, 256, 256), 6.0, torch.bfloat16, 2e-2),
+    ]
+    for name, (b, h, w, c, co), scale, dtype, tol in cases:
+        x = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
+        off = torch.randn(b, h, w, 9, 2, generator=gen, device=dev) * scale
+        off[:, : max(1, h // 4), :, :3, 0] -= 500.0  # far outside: no gradient
+        off = off.to(dtype)
+        wt = (torch.randn(3, 3, c, co, generator=gen, device=dev) * 0.05).to(dtype)
+        g = torch.randn(b, h, w, co, generator=gen, device=dev).to(dtype)
+        dx, dw = dc.deform_conv2d_bwd_cuda(x, off, wt, g)
+        torch.cuda.synchronize()
+        rx, rw = dc.deform_conv2d_bwd_plain(x, off, wt, g)
+        errs = []
+        for got, ref in ((dx, rx), (dw, rw)):
+            err = (got.float() - ref.float()).abs().max().item()
+            top = ref.float().abs().max().item()
+            errs.append((err, top, got.dtype == dtype and err <= tol * top))
+        if dtype == torch.bfloat16:
+            worst = max(worst, errs[0][0], errs[1][0])
+        check(errs[0][2] and errs[1][2],
+              f"{name}: dx max |kernel - plain| {errs[0][0]:.3g} (max |dx| {errs[0][1]:.3g}), "
+              f"dW {errs[1][0]:.3g} (max |dW| {errs[1][1]:.3g}); bound {tol} x max")
+    grads = [torch.randn(x.shape[:3] + (wl.shape[-1],), generator=gen,
+                         device=dev).bfloat16() for x, _, wl in levels]
+    t_k = cuda_ms(torch, lambda: [dc.deform_conv2d_bwd_cuda(*a, g)
+                                  for a, g in zip(levels, grads)], 5)
+    t_p = cuda_ms(torch, lambda: [dc.deform_conv2d_bwd_plain(*a, g)
+                                  for a, g in zip(levels, grads)], 1)
+    nbytes = ops = 0
+    for (x, _, wl), g in zip(levels, grads):
+        cells, c, co = x.numel() // x.shape[-1], x.shape[-1], wl.shape[-1]
+        nbytes += cells * (2 * c + 18 * 4 + 2 * co + 2 * c) + 9 * c * co * (2 + 4)
+        ops += 2 * 2 * cells * 9 * c * co
+    b_ms, b_by = bound(nbytes, ops, BF16_FLOP_S)
+    say(f"   deform_conv2d backward P3-P7 (one batch of 8, bf16): kernel {t_k:.3f} ms, "
+        f"plain {t_p:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {ops / 1e9:.0f} GFLOP, "
+        f"{nbytes / 1e6:.0f} MB)")
+    return dict(max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def phase_moments(torch, dev, gen):
+    """Kernels 5 and 6 against their plain versions; times over the BN
+    inputs of one R-50 step against the library calls."""
+    import torch.nn.functional as F
+
+    from s2anet_tpu_torch.models.bn import BatchNorm2d
+    from s2anet_tpu_torch.ops import moments as mo
+
+    say("== 8. kernels 5, 6: BN moment and pair sums vs plain")
+    worst = {"moments": 0.0, "pair": 0.0}
+    for shape in ((8, 512, 512, 64), (8, 32, 32, 2048)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.rand(shape, generator=gen, device=dev) * 2 + 0.3).to(dtype)
+            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            got = mo.channel_moments_cuda(x) + mo.grad_channel_sums_cuda(g, x)
+            torch.cuda.synchronize()
+            ref = mo.channel_moments_plain(x) + mo.grad_channel_sums_plain(g, x)
+            xf, gf = x.float().reshape(-1, shape[-1]), g.float().reshape(-1, shape[-1])
+            mags = (xf.abs().sum(0), (xf * xf).sum(0), gf.abs().sum(0),
+                    (gf * xf).abs().sum(0))
+            rel = [((a - r).abs() / m).max().item() for a, r, m in zip(got, ref, mags)]
+            worst["moments"] = max(worst["moments"], *(
+                (a - r).abs().max().item() for a, r in zip(got[:2], ref[:2])))
+            worst["pair"] = max(worst["pair"], *(
+                (a - r).abs().max().item() for a, r in zip(got[2:], ref[2:])))
+            check(max(rel) <= 1e-5,
+                  f"{list(shape)} {str(dtype)[6:]}: sum, sum x^2, sum g, sum g*x within "
+                  f"{max(rel):.3g} of the sums of magnitudes (bound 1e-5)")
+    shapes = bn_input_shapes(torch, "resnet50", BATCH, SIZE)
+    check(len(shapes) == 53, f"R-50 at {SIZE}^2 batch {BATCH}: {len(shapes)} BatchNorm inputs, "
+          f"{sum(n * c * h * w for n, c, h, w in shapes) / 1e9:.3f} G elements")
+    t = dict.fromkeys(("mk", "mp", "ml", "pk", "pp", "pl", "bk", "bl"), 0.0)
+    m_bytes = p_bytes = m_ops = 0
+    for n, c, h, w in shapes:
+        x = (torch.randn(n, h, w, c, generator=gen, device=dev) + 0.3).bfloat16()
+        g = torch.randn(n, h, w, c, generator=gen, device=dev).bfloat16()
+        xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels-last NCHW
+        t["mk"] += cuda_ms(torch, lambda: mo.channel_moments_cuda(x), 5)
+        t["mp"] += cuda_ms(torch, lambda: mo.channel_moments_plain(x), 2)
+        t["ml"] += cuda_ms(torch, lambda: torch.batch_norm_stats(xc, 1e-5), 5)
+        mean, invstd = torch.batch_norm_stats(xc, 1e-5)
+        weight = torch.ones(c, device=dev)
+        t["pk"] += cuda_ms(torch, lambda: mo.grad_channel_sums_cuda(g, x), 5)
+        t["pp"] += cuda_ms(torch, lambda: mo.grad_channel_sums_plain(g, x), 2)
+        t["pl"] += cuda_ms(torch, lambda: torch.batch_norm_backward_reduce(
+            gc, xc, mean, invstd, weight, True, True, True), 5)
+        bn = BatchNorm2d(c).to(dev).train()
+        xr = xc.detach().requires_grad_(True)
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        bias = torch.zeros(c, device=dev, requires_grad=True)
+        wr = torch.ones(c, device=dev, requires_grad=True)
+        t["bk"] += cuda_ms(torch, lambda: bn(xr).backward(gc), 3)
+        t["bl"] += cuda_ms(torch, lambda: F.batch_norm(
+            xr, rm, rv, wr, bias, training=True, momentum=0.1, eps=1e-5).backward(gc), 3)
+        rows = n * h * w
+        m_bytes += rows * c * 2 + 2 * c * 4
+        p_bytes += 2 * rows * c * 2 + 2 * c * 4
+        m_ops += 3 * rows * c
+        del x, g, xc, gc, xr, bn
+    mb, mby = bound(m_bytes, m_ops, F32_FLOP_S)
+    pb, pby = bound(p_bytes, m_ops, F32_FLOP_S)
+    say(f"   over the 53 BN inputs of one step (bf16): moments kernel {t['mk']:.3f} ms, "
+        f"plain {t['mp']:.3f} ms, torch.batch_norm_stats {t['ml']:.3f} ms, bound "
+        f"{mb:.3f} ms ({mby}, {m_bytes / 1e9:.2f} GB)")
+    say(f"   pair kernel {t['pk']:.3f} ms, plain {t['pp']:.3f} ms, "
+        f"torch.batch_norm_backward_reduce {t['pl']:.3f} ms, bound {pb:.3f} ms "
+        f"({pby}, {p_bytes / 1e9:.2f} GB)")
+    say(f"   whole BatchNorm forward + backward: port module {t['bk']:.3f} ms, "
+        f"cuDNN F.batch_norm {t['bl']:.3f} ms")
+    return (dict(max_abs_err=worst["moments"], ms=t["mk"], plain_ms=t["mp"], bound_ms=mb,
+                 bound_by=mby, library_ms=t["ml"]),
+            dict(max_abs_err=worst["pair"], ms=t["pk"], plain_ms=t["pp"], bound_ms=pb,
+                 bound_by=pby, library_ms=t["pl"]))
+
+
+def phase_train(torch, dev, card, out_dir):
+    """The training path through the port's CLI, its launch counts and one
+    profiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from s2anet_tpu_torch.train import __main__ as train_cli
+    from s2anet_tpu_torch.train.step import train_step
+
+    say("== 9. training path")
+    warm, steps = 3, 5
+    args = ["--backbone", "resnet50", "--img-size", str(SIZE), "--batch-size", str(BATCH),
+            "--dtype", "bfloat16", "--clamp", "6.0", "--warmup", str(warm),
+            "--steps", str(steps), "--seed", str(SEED)]
+    say(f"   python -m s2anet_tpu_torch.train {' '.join(args)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    for k in train_cli.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    summary = train_cli.main(args)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in train_cli.KERNELS}
+    n = warm + steps
+    per = {k: v / n for k, v in launches.items()}
+    say(f"   {n} steps in {time.perf_counter() - t0:.1f} s (model build and cuDNN "
+        f"autotuning included): {summary['ms_per_step']:.2f} ms/step, "
+        f"{summary['img_per_s']:.2f} img/s, peak memory {summary['peak_memory_gib']:.2f} GiB")
+    check(all(abs(v) < 1e6 for v in summary["losses"]) and all(
+        v == v for v in summary["losses"]), f"finite losses {summary['losses']}")
+    check(per["s2a_deform_conv2d_fwd"] == 5 and per["s2a_deform_conv2d_bwd"] == 5
+          and per["s2a_channel_moments"] == 53 and per["s2a_grad_channel_sums"] == 53
+          and per["s2a_box_iou_rotated"] > 0 and per["s2a_nms_rotated_mask"] == 0,
+          f"launches per step {per}")
+
+    cfg, model, optimizer, ema, batches = train_cli.setup(train_cli.parse_opt(args))
+    for i in range(2):
+        train_step(model, optimizer, ema, batches[i % len(batches)], cfg).tolist()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_step(model, optimizer, ema, batches[0], cfg).tolist()
+    avg = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(avg[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    (out_dir / "chip_smoke_train_profile.txt").write_text(
+        f"{card}\n{avg.table(sort_by=key, row_limit=80)}\n")
+    kern = sorted((e for e in avg if e.device_type == DeviceType.CUDA
+                   and getattr(e, key) > 0), key=lambda e: -getattr(e, key))
+    busy = sum(getattr(e, key) for e in kern) / 1000
+    groups: dict = {}
+    for e in kern:
+        name = e.key
+        grp = ("AlignConv forward kernel" if "deform_fwd" in name else
+               "AlignConv backward kernel" if "deform_bwd" in name or "cast_to_bf16" in name
+               else "BN moment kernels" if "partial_sums" in name or "finish_sums" in name
+               else "rotated IoU kernel" if "box_iou_rotated" in name
+               else "optimizer and EMA (foreach)" if "multi_tensor" in name
+               else "convolutions (cuDNN)" if any(
+                   t in name for t in ("conv", "xmma", "gemm", "cutlass", "sm90", "wgrad", "dgrad"))
+               else "memcpy, memset" if "Memcpy" in name or "Memset" in name
+               else "elementwise, reductions, gather")
+        groups[grp] = groups.get(grp, 0.0) + getattr(e, key) / 1000
+    wall = summary["ms_per_step"]
+    say(f"   profile of one step: {busy:.2f} ms of kernels in {sum(e.count for e in kern)} "
+        f"launches; timed step wall {wall:.2f} ms -> device idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}")
+    for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        say(f"     {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {grp}")
+    say("   top kernels:")
+    for e in kern[:14]:
+        say(f"     {getattr(e, key) / 1000:9.3f} ms  {e.count:5d}x  {e.key[:100]}")
+    del model, optimizer, ema, batches, prof
+    torch.cuda.empty_cache()
+    return launches, summary, batches_first_gt(train_cli, args)
+
+
+def batches_first_gt(train_cli, args):
+    """The first image's gt rows (64 slots) of the training run's batches."""
+    opt = train_cli.parse_opt(args)
+    b = train_cli.synthetic_batches(1, opt.batch_size, opt.img_size, opt.seed)[0]
+    return b["gt_boxes"][0]
+
+
+def phase_step_vs_plain(torch, dev):
+    """One R-18 train step through the kernels and through the plain
+    versions (section 10 of the module docstring)."""
+    from s2anet_tpu_torch.models import assigner as as_mod
+    from s2anet_tpu_torch.models import bn as bn_mod
+    from s2anet_tpu_torch.models import head as head_mod
+    from s2anet_tpu_torch.models.head import compute_s2anet_loss
+    from s2anet_tpu_torch.ops import deform_conv as dc
+    from s2anet_tpu_torch.ops import iou_rotated as iou
+    from s2anet_tpu_torch.ops import moments as mo
+    from s2anet_tpu_torch.train import __main__ as train_cli
+
+    say("== 10. one train step: kernel path vs plain path")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    args = ["--backbone", "resnet18", "--img-size", "256", "--batch-size", "2",
+            "--dtype", "float32", "--synthetic", "1", "--seed", str(SEED)]
+    plain_bwd = (mock.patch.object(dc, "deform_conv2d_bwd_cuda", dc.deform_conv2d_bwd_plain),
+                 mock.patch.object(bn_mod, "grad_channel_sums", mo.grad_channel_sums_plain))
+    plain_fwd = (mock.patch.object(head_mod, "deform_conv2d", dc.deform_conv2d_plain),
+                 mock.patch.object(bn_mod, "channel_moments", mo.channel_moments_plain),
+                 mock.patch.object(as_mod, "box_iou_rotated", iou.box_iou_rotated_plain))
+
+    def forward(patches, perturb=0.0):
+        cfg, model, _, _, batches = train_cli.setup(train_cli.parse_opt(args))
+        bt = batches[0]
+        imgs = bt["imgs"]
+        if perturb:
+            noise = torch.randn(imgs.shape, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(1))
+            imgs = imgs * (1 + perturb * noise)
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            out = model(imgs)
+            total, items = compute_s2anet_loss(
+                out, bt["gt_boxes"], bt["gt_classes"], bt["gt_mask"],
+                imgs_size=tuple(imgs.shape[-2:]), num_classes=cfg.num_classes)
+        return model, total, items.detach()
+
+    def backward(model, total, patches, retain=False):
+        model.zero_grad(set_to_none=True)
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            total.backward(retain_graph=retain)
+        return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+    for k in train_cli.KERNELS:
+        k.launches = 0
+    m_k, total_k, items_k = forward(())
+    g_kk = backward(m_k, total_k, (), retain=True)
+    g_kp = backward(m_k, total_k, plain_bwd)
+    kernel_launches = {k.symbol: k.launches for k in train_cli.KERNELS}
+    for k in train_cli.KERNELS:
+        k.launches = 0
+    m_p, total_p, items_p = forward(plain_fwd)
+    g_pp = backward(m_p, total_p, plain_bwd)
+    plain_launches = sum(k.launches for k in train_cli.KERNELS)
+    m_q, total_q, _ = forward(plain_fwd, perturb=1e-7)
+    g_qq = backward(m_q, total_q, plain_bwd)
+
+    def rel_max(a, b):
+        return {k: ((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30)).item()
+                for k in b}
+
+    def rel_global(a, b):
+        num = sum(((a[k] - b[k]) ** 2).sum() for k in b) ** 0.5
+        return (num / sum((b[k] ** 2).sum() for k in b) ** 0.5).item()
+
+    item_rel = ((items_k - items_p).abs() / items_p.abs()).max().item()
+    check(item_rel <= 1e-4, f"loss items kernel {[round(v, 6) for v in items_k.tolist()]} "
+          f"vs plain {[round(v, 6) for v in items_p.tolist()]}: max relative "
+          f"difference {item_rel:.3g} (bound 1e-4)")
+    bwd = rel_max(g_kk, g_kp)
+    worst_name = max(bwd, key=bwd.get)
+    check(max(bwd.values()) <= 1e-3 and kernel_launches["s2a_deform_conv2d_bwd"] == 5
+          and kernel_launches["s2a_grad_channel_sums"] == 20,
+          f"same forward, backward kernels vs plain backward: every one of {len(bwd)} "
+          f"gradients within {max(bwd.values()):.3g} of its largest value (worst "
+          f"{worst_name}; bound 1e-3); launches {kernel_launches}")
+    check(plain_launches == 0, "the plain path launched no kernel")
+    full, floor = rel_max(g_kk, g_pp), rel_max(g_qq, g_pp)
+    say(f"   all-kernel vs all-plain path: per-gradient max difference up to "
+        f"{max(full.values()):.3g} of its largest value (median "
+        f"{sorted(full.values())[len(full) // 2]:.3g}), {rel_global(g_kk, g_pp):.3g} of the "
+        f"global norm; the plain path itself under a 1e-7 relative input perturbation: up "
+        f"to {max(floor.values()):.3g} (median {sorted(floor.values())[len(floor) // 2]:.3g}), "
+        f"{rel_global(g_qq, g_pp):.3g} of the global norm (train-mode BN on 2 images "
+        f"amplifies rounding: ReLU and max-pool flips)")
+    torch.backends.cudnn.deterministic = False
+    return item_rel, max(bwd.values())
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
     parser.add_argument("--out", default=str(ROOT / "runs" / "chip_smoke"),
@@ -152,6 +532,7 @@ def main(argv=None) -> int:
     from s2anet_tpu_torch import predict as port_predict
     from s2anet_tpu_torch.config import ModelConfig
     from s2anet_tpu_torch.models import head as head_mod
+    from s2anet_tpu_torch.models.anchors import grid_anchors
     from s2anet_tpu_torch.models.head import decode_levels
     from s2anet_tpu_torch.ops import deform_conv as dc
     from s2anet_tpu_torch.ops import iou_rotated as iou
@@ -168,14 +549,18 @@ def main(argv=None) -> int:
         f"capability {torch.cuda.get_device_capability(0)}")
 
     say("== 2. build")
-    for name in ("deform_conv", "iou_nms_rotated"):
-        t0 = time.perf_counter()
-        _ext.library(name)
-        secs, log = _ext.build_log.get(name, (time.perf_counter() - t0, ""))
+    libs = ("deform_conv", "iou_nms_rotated", "bn_moments")
+    t0 = time.perf_counter()
+    _ext.build(libs)
+    say(f"   {len(libs)} libraries in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for name in libs:
+        secs, log = _ext.build_log.get(name, (0.0, ""))
         say(f"   {name}: built in {secs:.1f} s")
         for line in log.splitlines():
+            if "Compiling entry" in line:
+                say(f"     {line.strip().split('_cu_')[-1][:60]}")
             if "Used" in line or "spill" in line:
-                say(f"     {line.strip()}")
+                say(f"       {line.strip()}")
 
     # f32 comparisons: no TF32 anywhere (cuDNN convs default to it)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -253,7 +638,7 @@ def main(argv=None) -> int:
           f"NMS keep, 8 x 4096 clustered candidates: identical "
           f"({keep_k.sum().item()} kept of {valid.sum().item()} valid)")
 
-    say("== 5. main path")
+    say("== 5. serving path")
     cfg = ModelConfig()
     torch.backends.cudnn.benchmark = True
     kernels = [dc.DEFORM_FWD, nms.NMS_MASK, nms.NMS_SWEEP]
@@ -392,9 +777,16 @@ def main(argv=None) -> int:
     t_dk = cuda_ms(torch, lambda: [dc.deform_conv2d_cuda(*a) for a in levels], 10)
     t_dp = cuda_ms(torch, lambda: [dc.deform_conv2d_plain(*a) for a in levels], 3)
     t_p3 = cuda_ms(torch, lambda: dc.deform_conv2d_cuda(*levels[0]), 10)
+    nbytes = ops = 0
+    for xl, _, wl in levels:
+        cells, c, co = xl.numel() // xl.shape[-1], xl.shape[-1], wl.shape[-1]
+        nbytes += cells * (2 * c + 18 * 4 + 2 * co) + 9 * c * co * 2
+        ops += 2 * cells * 9 * c * co
+    fwd_bound = bound(nbytes, ops, BF16_FLOP_S)
     say(f"   deform_conv2d P3-P7 (one batch, bf16): kernel {t_dk:.3f} ms "
         f"(P3 alone {t_p3:.3f} ms, {2 * 8 * 128 * 128 * 9 * 256 * 256 / t_p3 / 1e9:.1f} "
-        f"TFLOP/s), plain {t_dp:.3f} ms")
+        f"TFLOP/s), plain {t_dp:.3f} ms, bound {fwd_bound[0]:.3f} ms ({fwd_bound[1]}: "
+        f"{ops / 1e9:.0f} GFLOP)")
 
     def run_mask():
         nms.NMS_MASK(cbc.data_ptr(), clc.data_ptr(), cvc.data_ptr(), cfg.nms_iou_thr,
@@ -409,15 +801,33 @@ def main(argv=None) -> int:
     t_sk = cuda_ms(torch, run_sweep, 10)
     t_mp = cuda_ms(torch, lambda: nms.overlap_plain(cb, cl, cv, cfg.nms_iou_thr, n), 2)
     t_sp = cuda_ms(torch, lambda: nms.sweep_plain(over, cv[:, :n]), 2)
+    # mask: the pairs j > i of valid candidates with equal labels run the
+    # IoU routine; it writes the words on and above the diagonal
+    cols = (k + 63) // 64
+    ops = 0
+    for i in range(BATCH):
+        vi = cv[i, :n]
+        same = (cl[i, :n, None] == cl[i, None, :n]) & vi[:, None] & vi[None, :]
+        same = same.triu(1)
+        b_i = cb[i, :n]
+        r = 0.5 * torch.sqrt(b_i[:, 2] ** 2 + b_i[:, 3] ** 2)
+        near = torch.cdist(b_i[:, :2].double(), b_i[:, :2].double()) <= (r[:, None] + r[None, :]).double()
+        full = (same & near).sum().item()
+        ops += full * IOU_PAIR_OPS + (same.sum().item() - full) * IOU_REJECT_OPS
+    words = BATCH * 64 * sum(cols - rb for rb in range(cols))
+    mask_bound = bound(BATCH * k * (5 * 4 + 4 + 1) + 8 * words, ops, F32_FLOP_S)
+    # sweep: the diagonal words, and each survivor's words right of its block
+    kept = keep_buf.nonzero()[:, 1]
+    sweep_words = BATCH * k + (cols - kept // 64 - 1).sum().item()
+    sweep_bound = bound(8 * sweep_words + 2 * BATCH * k, 0, F32_FLOP_S)
     say(f"   NMS on the main path's candidates (8 x {k}, {n} valid max): mask kernel "
-        f"{t_mk:.3f} ms vs plain overlap {t_mp:.3f} ms; sweep kernel {t_sk:.3f} ms "
-        f"vs plain sweep {t_sp:.3f} ms")
+        f"{t_mk:.3f} ms vs plain overlap {t_mp:.3f} ms, bound {mask_bound[0]:.4f} ms "
+        f"({mask_bound[1]}); sweep kernel {t_sk:.3f} ms vs plain sweep {t_sp:.3f} ms, "
+        f"bound {sweep_bound[0]:.4f} ms ({sweep_bound[1]})")
     c0 = cb[0].contiguous()
-    t_ik = cuda_ms(torch, lambda: iou.box_iou_rotated_cuda(c0, c0), 10)
-    t_ip = cuda_ms(torch, lambda: iou.box_iou_rotated_plain(c0, c0), 2)
-    say(f"   box_iou_rotated {k}x{k} (image 0's candidates): kernel {t_ik:.3f} ms, "
-        f"plain {t_ip:.3f} ms (max |kernel - plain| {iou_err:.3g}; "
-        f"not on the serving path, which runs the NMS kernels)")
+    t_ik4 = cuda_ms(torch, lambda: iou.box_iou_rotated_cuda(c0, c0), 10)
+    say(f"   box_iou_rotated {k}x{k} (image 0's candidates): kernel {t_ik4:.3f} ms "
+        f"(max |kernel - plain| {iou_err:.3g})")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -451,24 +861,70 @@ def main(argv=None) -> int:
     for e in kern[:12]:
         say(f"     {getattr(e, key) / 1000:9.3f} ms  {e.count:5d}x  {e.key[:100]}")
 
+    del pred, res, out, det
+    torch.cuda.empty_cache()
+
+    deform_bwd = phase_deform_bwd(torch, dev, gen, levels)
+    del levels
+    moments_row, pair_row = phase_moments(torch, dev, gen)
+    train_launches, train_summary, gt0 = phase_train(torch, dev, card, out_dir)
+
+    # the IoU kernel at the assignment's shape: the R-50 1024^2 anchors
+    # against one image's 64 gt slots
+    anchors = torch.from_numpy(np.concatenate([
+        grid_anchors((SIZE // st, SIZE // st), st) for st in cfg.strides])).to(dev)
+    gt_t = torch.from_numpy(gt0).to(dev)
+    got = iou.box_iou_rotated_cuda(anchors, gt_t)
+    torch.cuda.synchronize()
+    a_err = (got - iou.box_iou_rotated_plain(anchors, gt_t)).abs().max().item()
+    t_ik = cuda_ms(torch, lambda: iou.box_iou_rotated_cuda(anchors, gt_t), 20)
+    t_ip = cuda_ms(torch, lambda: iou.box_iou_rotated_plain(anchors, gt_t), 3)
+    a, g = anchors.shape[0], gt_t.shape[0]
+    iou_bound = bound(4 * (5 * a + 5 * g + a * g), iou_ops(torch, anchors, gt_t), F32_FLOP_S)
+    check(a_err <= 1e-6, f"box_iou_rotated at the assignment shape {a}x{g}: kernel "
+          f"{t_ik:.4f} ms, plain {t_ip:.3f} ms, bound {iou_bound[0]:.4f} ms "
+          f"({iou_bound[1]}); max |kernel - plain| {a_err:.3g}")
+    iou_err = max(iou_err, a_err)
+
+    phase_step_vs_plain(torch, dev)
+
     say(card)
-    say(json.dumps({"kernels": [
-        {"name": "deform_conv2d_fwd", "route": "cuda",
-         "source": "s2anet_tpu_torch/csrc/deform_conv.cu",
-         "replaces": "s2anet_tpu/ops/pallas/deform_kernel.py:195",
-         "launches": launches["s2a_deform_conv2d_fwd"],
-         "max_abs_err": deform_err, "ms": t_dk, "plain_ms": t_dp},
-        {"name": "nms_rotated_mask", "route": "cuda",
-         "source": "s2anet_tpu_torch/csrc/iou_nms_rotated.cu",
-         "replaces": "s2anet_tpu/ops/pallas/iou_kernel.py:46",
-         "launches": launches["s2a_nms_rotated_mask"],
-         "max_abs_err": float(mask_diff > 0), "ms": t_mk, "plain_ms": t_mp},
-        {"name": "nms_rotated_sweep", "route": "cuda",
-         "source": "s2anet_tpu_torch/csrc/iou_nms_rotated.cu",
-         "replaces": "s2anet_tpu/ops/nms_rotated.py:28",
-         "launches": launches["s2a_nms_rotated_sweep"],
-         "max_abs_err": float(keep_diff > 0), "ms": t_sk, "plain_ms": t_sp},
-    ]}))
+    src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"
+    src_i = "s2anet_tpu_torch/csrc/iou_nms_rotated.cu"
+    src_m = "s2anet_tpu_torch/csrc/bn_moments.cu"
+    rows = [
+        dict(name="deform_conv2d_fwd", source=src_d,
+             replaces="s2anet_tpu/ops/pallas/deform_kernel.py:195",
+             launches=train_launches["s2a_deform_conv2d_fwd"], path="train",
+             max_abs_err=deform_err, ms=t_dk, plain_ms=t_dp, bound_ms=fwd_bound[0],
+             bound_by=fwd_bound[1], library_ms=None),
+        dict(name="deform_conv2d_bwd", source=src_d,
+             replaces="s2anet_tpu/ops/pallas/deform_kernel.py:263",
+             launches=train_launches["s2a_deform_conv2d_bwd"], path="train", **deform_bwd),
+        dict(name="box_iou_rotated", source=src_i,
+             replaces="s2anet_tpu/ops/pallas/iou_kernel.py:46",
+             launches=train_launches["s2a_box_iou_rotated"], path="train",
+             max_abs_err=iou_err, ms=t_ik, plain_ms=t_ip, bound_ms=iou_bound[0],
+             bound_by=iou_bound[1], library_ms=None),
+        dict(name="nms_rotated_mask", source=src_i,
+             replaces="s2anet_tpu/ops/pallas/iou_kernel.py:46",
+             launches=launches["s2a_nms_rotated_mask"], path="serve",
+             max_abs_err=float(mask_diff > 0), ms=t_mk, plain_ms=t_mp,
+             bound_ms=mask_bound[0], bound_by=mask_bound[1], library_ms=None),
+        dict(name="nms_rotated_sweep", source=src_i,
+             replaces="s2anet_tpu/ops/nms_rotated.py:28",
+             launches=launches["s2a_nms_rotated_sweep"], path="serve",
+             max_abs_err=float(keep_diff > 0), ms=t_sk, plain_ms=t_sp,
+             bound_ms=sweep_bound[0], bound_by=sweep_bound[1], library_ms=None),
+        dict(name="channel_moments", source=src_m,
+             replaces="s2anet_tpu/ops/pallas/moments.py:43",
+             launches=train_launches["s2a_channel_moments"], path="train", **moments_row),
+        dict(name="grad_channel_sums", source=src_m,
+             replaces="s2anet_tpu/ops/pallas/moments.py:60",
+             launches=train_launches["s2a_grad_channel_sums"], path="train", **pair_row),
+    ]
+    say(json.dumps({"kernels": [{"name": r.pop("name"), "route": "cuda", **r}
+                                for r in rows]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

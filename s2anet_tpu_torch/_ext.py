@@ -21,6 +21,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -36,7 +37,8 @@ BASE_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 EXTRA_FLAGS = {"iou_nms_rotated": ["--fmad=false"]}
 
 _libs: dict = {}
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict = {}         # name -> lock held while that library builds
 # name -> (seconds, nvcc output) of the builds this process ran
 build_log: dict = {}
 
@@ -56,6 +58,8 @@ def _nvcc() -> str:
 def library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"
@@ -82,6 +86,13 @@ def library(name: str) -> ctypes.CDLL:
         lib.s2a_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
         return lib
+
+
+def build(names) -> None:
+    """Build and load several libraries at once, one ``nvcc`` for each."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for future in [pool.submit(library, n) for n in names]:
+            future.result()
 
 
 class Kernel:

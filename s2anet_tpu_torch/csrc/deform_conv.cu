@@ -1,12 +1,14 @@
-// AlignConv forward: 3x3 deformable convolution, stride 1, 'same' padding,
-// one deformable group, NHWC.
+// AlignConv: 3x3 deformable convolution, stride 1, 'same' padding, one
+// deformable group, NHWC -- forward and backward.
 //
-// Replaces the TPU kernel s2anet_tpu/ops/pallas/deform_kernel.py::_fwd_kernel
-// (and its DMA-window twin _fwd_kernel_dma). That kernel had no gather, so it
-// built each tap's bilinear "hat" matrix over a window of the map and rode
-// the matrix unit. Hopper gathers natively, so this kernel samples directly:
-// it is exact for every offset and needs neither the window nor the window
-// predicate and gather fallback that guarded the TPU kernel.
+// Replaces the TPU kernels s2anet_tpu/ops/pallas/deform_kernel.py::_fwd_kernel
+// (and its DMA-window twin _fwd_kernel_dma) and ::_bwd_kernel. Those kernels
+// had no gather, so they built each tap's bilinear "hat" matrix over a window
+// of the map and rode the matrix unit; the backward turned the dx scatter
+// into a transposed hat product over the window and overlap-added the
+// windows (_fold_windows). Hopper gathers and scatters natively, so these
+// kernels sample directly: exact for every offset, with neither the window
+// nor the window predicate and gather fallback that guarded the TPU kernels.
 //
 //   out[b,h,w,:] = sum_t bilinear(x[b], h+ky_t+dy, w+kx_t+dx) @ W[t]
 //
@@ -19,11 +21,12 @@
 // multiplies and adds (no fused multiply-add), in the plain version's order,
 // so kernel and plain version form the same samples bit for bit.
 //
-// What bounds it on an H100: 9*C*Cout multiply-adds per output cell (P3 at
-// batch 8: 77 GMAC) against 9*4*C gathered corner values per cell, which
-// mostly hit L2. A block owns 64 output cells and up to 256 output
-// channels; per tap and per slice of input channels it gathers the 64 cells'
-// samples and the slice of W[t] into shared memory, then multiplies:
+// Forward. What bounds it on an H100: 9*C*Cout multiply-adds per output
+// cell (P3 at batch 8: 77 GMAC) against 9*4*C gathered corner values per
+// cell, which mostly hit L2. A block owns 64 output cells and up to 256
+// output channels; per tap and per slice of input channels it gathers the
+// 64 cells' samples and the slice of W[t] into shared memory, then
+// multiplies:
 //   * bfloat16 (the serving type): 64-channel slices, 16-byte vector
 //     gathers, and the product on the tensor cores (WMMA bf16 16x16x16,
 //     float32 accumulators; each warp owns a 16x128 output tile). Needs C
@@ -31,7 +34,25 @@
 //   * float32: 32-channel slices and the product on the CUDA cores, an 8x8
 //     float32 register tile per thread, so float32 results stay exact to
 //     float32 rounding (tensor cores would round to TF32).
-// wgmma, TMA and a persistent schedule are later work.
+//
+// Backward (offsets get no gradient: AlignConv's come from detached
+// anchors, as in the TPU kernel's VJP). Twice the forward's products, and
+// two reductions over all B*H*W cells:
+//   * dW[t] = sum over cells of sample_t (x) g. A block owns one tap, a
+//     64-channel slice of C, up to 256 output channels and a chunk of
+//     cells; it gathers the samples as the forward does (rounded to the
+//     input type), multiplies them with the chunk's g on the tensor cores
+//     (bf16) or CUDA cores (f32), and adds its float32 tile into dW with one
+//     atomic add per element per block. The chunk count (wrapper) gives
+//     about 4 blocks per SM, so the atomics are few.
+//   * dx: per tap, dsamp = g @ W[t]^T for a block of 64 cells x 256 input
+//     channels (the forward's product with W transposed, float32 result),
+//     then each value is scattered to the sample's inside corners with
+//     float32 atomic adds into a float32 dx workspace, which a last pass
+//     casts to bfloat16 for bf16 inputs. The scatter is the reference's
+//     col2im design; its atomics (4 per cell, tap and channel) bound this
+//     pass, and they make the float32 sums' order vary from run to run.
+// wgmma, TMA, a persistent schedule and a scatter-free dx are later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -45,13 +66,15 @@ constexpr int BN = 256;  // output channels per block
 constexpr int NT = 256;  // threads per block (8 warps)
 
 // Corner rows (in x viewed as [B*H*W, C], -1 = outside) and weights of the
-// block's 64 cells for tap t; threads 0..63 each fill one cell.
+// NC cells p0 .. p0+NC-1 for tap t (cells at or past P get none); threads
+// 0..NC-1 each fill one cell.
+template <int NC>
 __device__ __forceinline__ void tap_corners(const float* __restrict__ off,
                                             long long p0, long long P, int H,
                                             int W, int t, int (*s_idx)[4],
                                             float (*s_cw)[4]) {
   const int tid = threadIdx.x;
-  if (tid >= BP) return;
+  if (tid >= NC) return;
   const long long p = p0 + tid;
   int idx[4] = {-1, -1, -1, -1};
   float cw[4] = {0.f, 0.f, 0.f, 0.f};
@@ -112,7 +135,7 @@ deform_fwd_f32(const float* __restrict__ x, const float* __restrict__ off,
 
   for (int t = 0; t < 9; ++t) {
     __syncthreads();  // the previous tap's readers of s_idx/s_cw are done
-    tap_corners(off, p0, P, H, W, t, s_idx, s_cw);
+    tap_corners<BP>(off, p0, P, H, W, t, s_idx, s_cw);
     __syncthreads();
     for (int c0 = 0; c0 < C; c0 += KC32) {
       // 64 x 32 samples; consecutive threads read consecutive channels
@@ -206,7 +229,7 @@ deform_fwd_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ o
 
   for (int t = 0; t < 9; ++t) {
     __syncthreads();
-    tap_corners(off, p0, P, H, W, t, s_idx, s_cw);
+    tap_corners<BP>(off, p0, P, H, W, t, s_idx, s_cw);
     __syncthreads();
     for (int c0 = 0; c0 < C; c0 += KC16) {
       // 64 cells x 8 vectors of 8 channels: 2 vector samples per thread
@@ -284,6 +307,382 @@ deform_fwd_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ o
   }
 }
 
+
+// =============================================================== backward
+// ------------------------------------------------------ dW, float32
+// grid (chunks, 9 * ceil(C/64), ceil(Cout/256)); the block's 64 x 256 tile
+// of dW[t] is an 8x8 register tile per thread, summed over 32-cell steps.
+constexpr int KP32 = 32;  // cells per step
+constexpr int MC = 64;    // input channels per dW block
+
+__global__ void __launch_bounds__(NT)
+deform_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ off,
+                  const float* __restrict__ g, float* __restrict__ dw, int B,
+                  int H, int W, int C, int Cout, long long chunk) {
+  __shared__ float s_samp[KP32][MC];               // [cell][channel]
+  __shared__ __align__(16) float s_g[KP32][BN];    // [cell][output channel]
+  __shared__ int s_idx[KP32][4];
+  __shared__ float s_cw[KP32][4];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long P = (long long)B * H * W;
+  const int n_cs = (C + MC - 1) / MC;
+  const int t = blockIdx.y / n_cs;
+  const int c0 = (blockIdx.y % n_cs) * MC;
+  const int n0 = blockIdx.z * BN;
+  const long long pbeg = (long long)blockIdx.x * chunk;
+  const long long pend = pbeg + chunk < P ? pbeg + chunk : P;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (long long p0 = pbeg; p0 < pend; p0 += KP32) {
+    __syncthreads();  // the previous step's readers are done
+    tap_corners<KP32>(off, p0, pend, H, W, t, s_idx, s_cw);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < (KP32 * MC) / NT; ++i) {
+      const int e = tid + i * NT;
+      const int cell = e / MC;
+      const int c = e % MC;
+      float v = 0.f;
+      if (c0 + c < C) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = s_idx[cell][q];
+          if (r >= 0)
+            v = __fadd_rn(v, __fmul_rn(s_cw[cell][q], x[(long long)r * C + c0 + c]));
+        }
+      }
+      s_samp[cell][c] = v;
+    }
+#pragma unroll 4
+    for (int i = 0; i < (KP32 * BN) / NT; ++i) {
+      const int e = tid + i * NT;
+      const int cell = e / BN;
+      const int n = e % BN;
+      s_g[cell][n] = (p0 + cell < pend && n0 + n < Cout)
+                         ? g[(p0 + cell) * Cout + n0 + n]
+                         : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < KP32; ++k) {
+      float a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = s_samp[k][warp * 8 + i];
+      const float4 b0 = *reinterpret_cast<const float4*>(&s_g[k][lane * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&s_g[k][128 + lane * 4]);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * bv[j];
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = c0 + warp * 8 + i;
+    if (c >= C) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (j < 4 ? lane * 4 + j : 128 + lane * 4 + (j - 4));
+      if (n < Cout) atomicAdd(&dw[((long long)t * C + c) * Cout + n], acc[i][j]);
+    }
+  }
+}
+
+// ----------------------------------------------------- dW, bfloat16
+// Same blocks; per 64-cell step the samples (A, stored cell-major = column
+// major for the channel x cell operand) and g (B) are staged in shared memory
+// and multiplied on the tensor cores; each warp owns a 16 x 128 tile of dW.
+__global__ void __launch_bounds__(NT)
+deform_bwd_dw_bf16(const __nv_bfloat16* __restrict__ x,
+                   const float* __restrict__ off,
+                   const __nv_bfloat16* __restrict__ g, float* __restrict__ dw,
+                   int B, int H, int W, int C, int Cout, long long chunk) {
+  using namespace nvcuda;
+  __shared__ __align__(128) __nv_bfloat16 s_samp[BP * LDA];  // [cell][channel]
+  __shared__ __align__(128) __nv_bfloat16 s_g[BP * LDB];     // [cell][out ch.]
+  __shared__ int s_idx[BP][4];
+  __shared__ float s_cw[BP][4];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long P = (long long)B * H * W;
+  const int n_cs = (C + MC - 1) / MC;
+  const int t = blockIdx.y / n_cs;
+  const int c0 = (blockIdx.y % n_cs) * MC;
+  const int n0 = blockIdx.z * BN;
+  const long long pbeg = (long long)blockIdx.x * chunk;
+  const long long pend = pbeg + chunk < P ? pbeg + chunk : P;
+  const int row0 = (warp & 3) * 16;    // warp's 16 input channels
+  const int col0 = (warp >> 2) * 128;  // warp's 128 output channels
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.f);
+
+  for (long long p0 = pbeg; p0 < pend; p0 += BP) {
+    __syncthreads();
+    tap_corners<BP>(off, p0, pend, H, W, t, s_idx, s_cw);
+    __syncthreads();
+    // 64 cells x 8 vectors of 8 channels: 2 vector samples per thread
+#pragma unroll
+    for (int i = 0; i < (BP * MC / 8) / NT; ++i) {
+      const int e = tid + i * NT;
+      const int cell = e >> 3;
+      const int c = (e & 7) * 8;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (c0 + c < C) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = s_idx[cell][q];
+          if (r >= 0) {
+            Vec8 in;
+            in.u = *reinterpret_cast<const uint4*>(x + (long long)r * C + c0 + c);
+            const float cw = s_cw[cell][q];
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              v[k] = __fadd_rn(v[k], __fmul_rn(cw, __bfloat162float(in.h[k])));
+          }
+        }
+      }
+      Vec8 o;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o.h[k] = __float2bfloat16(v[k]);
+      *reinterpret_cast<uint4*>(&s_samp[cell * LDA + c]) = o.u;
+    }
+    // g of the 64 cells, 256 output channels: 8 vectors per thread
+#pragma unroll
+    for (int i = 0; i < (BP * BN / 8) / NT; ++i) {
+      const int e = tid + i * NT;
+      const int cell = e >> 5;
+      const int n = (e & 31) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (p0 + cell < pend && n0 + n < Cout)
+        v = *reinterpret_cast<const uint4*>(g + (p0 + cell) * Cout + n0 + n);
+      *reinterpret_cast<uint4*>(&s_g[cell * LDB + n]) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BP; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a;
+      wmma::load_matrix_sync(a, &s_samp[kk * LDA + row0], LDA);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
+        wmma::load_matrix_sync(b, &s_g[kk * LDB + col0 + j * 16], LDB);
+        wmma::mma_sync(acc[j], a, b, acc[j]);
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is done with s_samp: reuse it as staging
+  float* stage = reinterpret_cast<float*>(s_samp) + warp * 256;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = lane + 32 * i;
+      const int c = c0 + row0 + (e >> 4);
+      const int n = n0 + col0 + j * 16 + (e & 15);
+      if (c < C && n < Cout) atomicAdd(&dw[((long long)t * C + c) * Cout + n], stage[e]);
+    }
+    __syncwarp();
+  }
+}
+
+// ------------------------------------------------------ dx, float32
+// grid (ceil(P/64), ceil(C/256)); per tap the block's 64 cells x 256 input
+// channels of g @ W[t]^T (8x8 register tile per thread), then the scatter.
+__global__ void __launch_bounds__(NT)
+deform_bwd_dx_f32(const float* __restrict__ off, const float* __restrict__ wt,
+                  const float* __restrict__ g, float* __restrict__ dx, int B,
+                  int H, int W, int C, int Cout) {
+  __shared__ float s_g[KC32][BP + 1];              // [out ch.][cell]
+  __shared__ __align__(16) float s_w[KC32][BN];    // [out ch.][in ch.]
+  __shared__ int s_idx[BP][4];
+  __shared__ float s_cw[BP][4];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long P = (long long)B * H * W;
+  const long long p0 = (long long)blockIdx.x * BP;
+  const int n0 = blockIdx.y * BN;
+
+  for (int t = 0; t < 9; ++t) {
+    __syncthreads();  // the previous tap's scatter has read s_idx/s_cw
+    tap_corners<BP>(off, p0, P, H, W, t, s_idx, s_cw);
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int k0 = 0; k0 < Cout; k0 += KC32) {
+#pragma unroll
+      for (int i = 0; i < (BP * KC32) / NT; ++i) {
+        const int e = tid + i * NT;
+        const int cell = e / KC32;
+        const int k = e % KC32;
+        s_g[k][cell] = (p0 + cell < P && k0 + k < Cout)
+                           ? g[(p0 + cell) * Cout + k0 + k]
+                           : 0.f;
+      }
+#pragma unroll 4
+      for (int i = 0; i < (KC32 * BN) / NT; ++i) {
+        const int e = tid + i * NT;
+        const int k = e / BN;
+        const int n = e % BN;
+        s_w[k][n] = (k0 + k < Cout && n0 + n < C)
+                        ? wt[((long long)t * C + n0 + n) * Cout + k0 + k]
+                        : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int k = 0; k < KC32; ++k) {
+        float a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = s_g[k][warp * 8 + i];
+        const float4 b0 = *reinterpret_cast<const float4*>(&s_w[k][lane * 4]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&s_w[k][128 + lane * 4]);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * bv[j];
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int cell = warp * 8 + i;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = s_idx[cell][q];
+        if (r < 0) continue;
+        const float cw = s_cw[cell][q];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = n0 + (j < 4 ? lane * 4 + j : 128 + lane * 4 + (j - 4));
+          if (n < C) atomicAdd(&dx[(long long)r * C + n], cw * acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------- dx, bfloat16
+// As the float32 version, with g (A) and W[t] (B, stored input-channel-major
+// = column major) staged in 64-channel slices of Cout and multiplied on the
+// tensor cores; each warp owns 16 cells x 128 input channels.
+constexpr int LDK = KC16 + 8;  // padded rows (elements) of the g and W tiles
+
+__global__ void __launch_bounds__(NT)
+deform_bwd_dx_bf16(const float* __restrict__ off,
+                   const __nv_bfloat16* __restrict__ wt,
+                   const __nv_bfloat16* __restrict__ g, float* __restrict__ dx,
+                   int B, int H, int W, int C, int Cout) {
+  using namespace nvcuda;
+  __shared__ __align__(128) __nv_bfloat16 s_g[BP * LDK];  // [cell][out ch.]
+  __shared__ __align__(128) __nv_bfloat16 s_w[BN * LDK];  // [in ch.][out ch.]
+  __shared__ int s_idx[BP][4];
+  __shared__ float s_cw[BP][4];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long P = (long long)B * H * W;
+  const long long p0 = (long long)blockIdx.x * BP;
+  const int n0 = blockIdx.y * BN;
+  const int row0 = (warp & 3) * 16;    // warp's 16 cells
+  const int col0 = (warp >> 2) * 128;  // warp's 128 input channels
+
+  for (int t = 0; t < 9; ++t) {
+    __syncthreads();  // the previous tap's scatter has read s_g, s_idx, s_cw
+    tap_corners<BP>(off, p0, P, H, W, t, s_idx, s_cw);
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.f);
+    for (int k0 = 0; k0 < Cout; k0 += KC16) {
+      // g: 64 cells x 8 vectors of 8 output channels, 2 per thread
+#pragma unroll
+      for (int i = 0; i < (BP * KC16 / 8) / NT; ++i) {
+        const int e = tid + i * NT;
+        const int cell = e >> 3;
+        const int k = (e & 7) * 8;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (p0 + cell < P && k0 + k < Cout)
+          v = *reinterpret_cast<const uint4*>(g + (p0 + cell) * Cout + k0 + k);
+        *reinterpret_cast<uint4*>(&s_g[cell * LDK + k]) = v;
+      }
+      // W[t]: 256 input channels x 8 vectors of 8 output channels, 8 per thread
+#pragma unroll
+      for (int i = 0; i < (BN * KC16 / 8) / NT; ++i) {
+        const int e = tid + i * NT;
+        const int n = e >> 3;
+        const int k = (e & 7) * 8;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (n0 + n < C && k0 + k < Cout)
+          v = *reinterpret_cast<const uint4*>(
+              wt + ((long long)t * C + n0 + n) * Cout + k0 + k);
+        *reinterpret_cast<uint4*>(&s_w[n * LDK + k]) = v;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < KC16; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, &s_g[row0 * LDK + kk], LDK);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
+          wmma::load_matrix_sync(b, &s_w[(col0 + j * 16) * LDK + kk], LDK);
+          wmma::mma_sync(acc[j], a, b, acc[j]);
+        }
+      }
+      __syncthreads();
+    }
+    // scatter: each warp stages one 16x16 float tile at a time in s_g
+    float* stage = reinterpret_cast<float*>(s_g) + warp * 256;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = lane + 32 * i;
+        const int cell = row0 + (e >> 4);
+        const int n = n0 + col0 + j * 16 + (e & 15);
+        if (n >= C) continue;
+        const float v = stage[e];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = s_idx[cell][q];
+          if (r >= 0) atomicAdd(&dx[(long long)r * C + n], s_cw[cell][q] * v);
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+__global__ void cast_to_bf16(const float* __restrict__ src,
+                             __nv_bfloat16* __restrict__ dst, long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    dst[i] = __float2bfloat16(src[i]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -310,6 +709,51 @@ int s2a_deform_conv2d_fwd(const void* x, const void* offsets, const void* weight
         static_cast<const __nv_bfloat16*>(x), off,
         static_cast<const __nv_bfloat16*>(weight),
         static_cast<__nv_bfloat16*>(out), B, H, W, C, Cout);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Backward of s2a_deform_conv2d_fwd for the same x, offsets and weight and
+// the output gradient grad [B,H,W,Cout] (x's type). dx32 [B,H,W,C] and
+// dw [3,3,C,Cout] are float32 and must be zero on entry; for bfloat16, dx
+// [B,H,W,C] receives dx32 cast to bfloat16 (for float32 pass dx == dx32).
+// chunks: cell chunks of the dW reduction. Returns the launches'
+// cudaError_t.
+int s2a_deform_conv2d_bwd(const void* x, const void* offsets, const void* weight,
+                          const void* grad, void* dx32, void* dx, void* dw,
+                          int B, int H, int W, int C, int Cout, int chunks,
+                          int dtype, void* stream) {
+  const long long P = (long long)B * H * W;
+  if (P == 0 || C == 0 || Cout == 0) return 0;
+  if (chunks < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* off = static_cast<const float*>(offsets);
+  const long long step = dtype == 1 ? BP : KP32;
+  const long long per = (P + chunks - 1) / chunks;
+  const long long chunk = (per + step - 1) / step * step;
+  dim3 grid_dw((unsigned)((P + chunk - 1) / chunk),
+               (unsigned)(9 * ((C + MC - 1) / MC)), (unsigned)((Cout + BN - 1) / BN));
+  dim3 grid_dx((unsigned)((P + BP - 1) / BP), (unsigned)((C + BN - 1) / BN));
+  float* dxf = static_cast<float*>(dx32);
+  float* dwf = static_cast<float*>(dw);
+  if (dtype == 0) {
+    const float* xf = static_cast<const float*>(x);
+    const float* wf = static_cast<const float*>(weight);
+    const float* gf = static_cast<const float*>(grad);
+    deform_bwd_dw_f32<<<grid_dw, NT, 0, s>>>(xf, off, gf, dwf, B, H, W, C, Cout, chunk);
+    deform_bwd_dx_f32<<<grid_dx, NT, 0, s>>>(off, wf, gf, dxf, B, H, W, C, Cout);
+  } else if (dtype == 1) {
+    if (C % 8 != 0 || Cout % 8 != 0) return (int)cudaErrorInvalidValue;
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(weight);
+    const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(grad);
+    deform_bwd_dw_bf16<<<grid_dw, NT, 0, s>>>(xb, off, gb, dwf, B, H, W, C, Cout, chunk);
+    deform_bwd_dx_bf16<<<grid_dx, NT, 0, s>>>(off, wb, gb, dxf, B, H, W, C, Cout);
+    const long long n = P * C;
+    const long long blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+    cast_to_bf16<<<(unsigned)blocks, 256, 0, s>>>(dxf, static_cast<__nv_bfloat16*>(dx), n);
   } else {
     return (int)cudaErrorInvalidValue;
   }

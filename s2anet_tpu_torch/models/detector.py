@@ -1,8 +1,10 @@
 """The S2ANet detector: ResNet -> FPN -> S2ANet head.
 
-Counterpart of ``s2anet_tpu/models/detector.py::S2ANet`` (serving only).
-``forward`` takes ``[B, 3, H, W]`` images already scaled by 1/255 and returns
-the raw head outputs; :func:`..models.head.s2anet_get_bboxes` decodes them.
+Counterpart of ``s2anet_tpu/models/detector.py::S2ANet``. ``forward`` takes
+``[B, 3, H, W]`` images already scaled by 1/255 and returns the raw head
+outputs, in eval and in train mode; :func:`..models.head.s2anet_get_bboxes`
+decodes them for serving, :func:`..models.head.compute_s2anet_loss` turns
+them into the training loss.
 """
 
 from __future__ import annotations
@@ -39,6 +41,14 @@ class S2ANet(nn.Module):
         self.backbone.init_weights(generator)
         self.neck.init_weights(generator)
         self.head.init_weights(generator)
+        return self
+
+    def channels_last(self) -> "S2ANet":
+        """Every 4-D weight channels-last: the convs then run NHWC, and the
+        AlignConv and BatchNorm kernels read their inputs in place."""
+        for p in self.parameters():
+            if p.dim() == 4:
+                p.data = p.data.contiguous(memory_format=torch.channels_last)
         return self
 
     def cast(self, dtype: torch.dtype) -> "S2ANet":

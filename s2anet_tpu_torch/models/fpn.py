@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .conv import Conv2d
+
 
 class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (512, 1024, 2048),
@@ -20,12 +22,12 @@ class FPN(nn.Module):
         super().__init__()
         n_in = len(in_channels)
         self.lateral_convs = nn.ModuleList(
-            nn.Conv2d(c, out_channels, 1) for c in in_channels)
-        extra = [nn.Conv2d(in_channels[-1] if i == 0 else out_channels,
+            Conv2d(c, out_channels, 1) for c in in_channels)
+        extra = [Conv2d(in_channels[-1] if i == 0 else out_channels,
                            out_channels, 3, 2, 1)
                  for i in range(max(num_outs - n_in, 0))]
         self.fpn_convs = nn.ModuleList(
-            [nn.Conv2d(out_channels, out_channels, 3, 1, 1)
+            [Conv2d(out_channels, out_channels, 3, 1, 1)
              for _ in range(n_in)] + extra)
         self.n_in = n_in
 

@@ -1,8 +1,9 @@
-"""S2ANet head (FAM -> anchor refinement -> AlignConv -> ORConv -> ODM) and
-inference decoding.
+"""S2ANet head (FAM -> anchor refinement -> AlignConv -> ORConv -> ODM), its
+training loss and inference decoding.
 
-Counterpart of ``s2anet_tpu/models/head.py`` (``S2ANetHead`` in inference,
-``s2anet_get_bboxes``). The conv stacks are shared across the FPN levels.
+Counterpart of ``s2anet_tpu/models/head.py`` (``S2ANetHead``,
+``compute_s2anet_loss``, ``s2anet_get_bboxes``). The conv stacks are shared
+across the FPN levels.
 
 Numerics pinned to the JAX package:
   * the four prediction heads (``fam_reg_head``, ``fam_cls_head``,
@@ -11,8 +12,8 @@ Numerics pinned to the JAX package:
     with float32 parameters to float32 there; everything else computes in
     the input's type;
   * outputs and anchors are flattened in NHWC (h, w) row-major order;
-  * anchor refinement decodes with ``wh_ratio_clip=1e-6``, the final boxes
-    with the default 16/1000;
+  * anchor refinement decodes the detached FAM deltas with
+    ``wh_ratio_clip=1e-6``, the final boxes with the default 16/1000;
   * the AlignConv offsets are cast to the feature type before the kernel,
     whose sample coordinates are float32.
 
@@ -32,8 +33,11 @@ from torch import nn
 from ..ops.deform_conv import align_conv_offsets, deform_conv2d
 from ..ops.nms_rotated import multiclass_nms_rotated
 from ..ops.orn import rotate_arf, rotation_invariant_pooling
-from ..ops.rbox import rboxes_decode
+from ..ops.rbox import rboxes_decode, rboxes_encode
 from .anchors import grid_anchors
+from .assigner import assign_labels
+from .conv import Conv2d
+from .losses import focal_loss_with_logits, smooth_l1_loss
 
 
 _STACKED_CONVS = 2  # convs per FAM/ODM stack
@@ -47,7 +51,7 @@ def _bias_init_with_prob(prob: float) -> float:
 def _conv_stack(cin: int, feat: int, n: int) -> nn.Sequential:
     """n x (3x3 conv + ReLU); the first conv takes ``cin`` channels."""
     return nn.Sequential(*(
-        nn.Sequential(nn.Conv2d(cin if i == 0 else feat, feat, 3, 1, 1),
+        nn.Sequential(Conv2d(cin if i == 0 else feat, feat, 3, 1, 1),
                       nn.ReLU())
         for i in range(n)))
 
@@ -121,14 +125,14 @@ class S2ANetHead(nn.Module):
         self.fam_reg_ls = _conv_stack(fc, fc, _STACKED_CONVS)
         self.fam_cls_ls = _conv_stack(fc, fc, _STACKED_CONVS)
         # FAM output heads are 1x1, ODM heads 3x3
-        self.fam_reg_head = nn.Conv2d(fc, 5, 1)
-        self.fam_cls_head = nn.Conv2d(fc, nc, 1)
+        self.fam_reg_head = Conv2d(fc, 5, 1)
+        self.fam_cls_head = Conv2d(fc, nc, 1)
         self.align_conv = AlignConv(fc, align_offset_clamp)
         self.or_conv = ORConv2d(fc, fc, _N_ORIENT)
         self.odm_reg_ls = _conv_stack(fc, fc, _STACKED_CONVS)
         self.odm_cls_ls = _conv_stack(fc // _N_ORIENT, fc, _STACKED_CONVS)
-        self.odm_reg_head = nn.Conv2d(fc, 5, 3, 1, 1)
-        self.odm_cls_head = nn.Conv2d(fc, nc, 3, 1, 1)
+        self.odm_reg_head = Conv2d(fc, 5, 3, 1, 1)
+        self.odm_cls_head = Conv2d(fc, nc, 3, 1, 1)
         self._anchors: dict = {}
 
     def prediction_heads(self):
@@ -178,9 +182,11 @@ class S2ANetHead(nn.Module):
             fam_cls = self._head(self.fam_cls_head, self.fam_cls_ls(x))
 
             anchors = self.level_anchors(h, w, stride, x.device)
+            # refined anchors carry no gradient: neither the ODM loss nor the
+            # AlignConv offsets train the FAM regression branch
             refine = rboxes_decode(
                 anchors[None].expand(b, h * w, 5),
-                fam_bbox.reshape(b, h * w, 5).float(),
+                fam_bbox.detach().reshape(b, h * w, 5).float(),
                 wh_ratio_clip=1e-6,
             )
             align = self.align_conv(_nhwc(x), refine, stride)  # NHWC
@@ -198,6 +204,95 @@ class S2ANetHead(nn.Module):
             out["init_anchors"].append(anchors)
             out["refine_anchors"].append(refine)
         return out
+
+
+def _level_loss(bbox_pred, cls_pred, anchors, assign, gt_boxes, gt_classes,
+                num_classes, fl_gamma, fl_alpha, smooth_beta):
+    """Masked loss sums of one level: ``(cls_loss_sum, reg_loss_sum)``.
+
+    ``bbox_pred [B, A, 5]``, ``cls_pred [B, A, nc]``, ``anchors [B, A, 5]``,
+    ``assign [B, A]`` codes, ``gt_boxes [B, G, 5]``, ``gt_classes [B, G]``.
+    """
+    pos = assign >= 0
+    neg = assign == -1
+    gt_idx = assign.clamp_min(0).long()
+    matched_boxes = torch.gather(gt_boxes, 1, gt_idx[..., None].expand(-1, -1, 5))
+    matched_cls = torch.gather(gt_classes.long(), 1, gt_idx)
+
+    anchors = anchors.float()
+    # a non-positive slot encodes against the anchor itself: zero targets,
+    # no log(0) from a padded gt row
+    matched_boxes = torch.where(pos[..., None], matched_boxes, anchors)
+    reg_targets = rboxes_encode(anchors, matched_boxes)
+    reg_loss = smooth_l1_loss(bbox_pred.float(), reg_targets, smooth_beta)
+    reg_loss = (reg_loss * pos).sum()
+
+    cls_targets = F.one_hot(matched_cls, num_classes).float() * pos[..., None]
+    cls_w = (pos | neg).float()
+    cls_loss = focal_loss_with_logits(cls_pred.float(), cls_targets,
+                                      fl_gamma, fl_alpha)
+    cls_loss = (cls_loss * cls_w[..., None]).sum()
+    return cls_loss, reg_loss
+
+
+def compute_s2anet_loss(outputs, gt_boxes, gt_classes, gt_mask,
+                        imgs_size=(1024, 1024), num_classes: int = 15,
+                        fl_gamma: float = 2.0, fl_alpha: float = 0.5,
+                        smooth_beta: float = 1.0 / 9.0, odm_balance: float = 1.0,
+                        reg_balance: float = 1.0,
+                        fpn_balance=(1.0, 1.0, 1.0, 1.0, 1.0)):
+    """Total S2ANet loss over a batch, in float32.
+
+    FAM outputs are assigned against the initial anchors, ODM outputs against
+    the (detached) refined anchors. Each sum runs over every level and the
+    whole batch and is divided by the batch's positives, at least B.
+
+    Args:
+      outputs: the head's output dict.
+      gt_boxes ``[B, G, 5]``, gt_classes ``[B, G]``, gt_mask ``[B, G]``:
+        padded gts, real rows first. The JAX step assigns against the first
+        64 columns when no image has more real gts; the port's caller makes
+        that choice on the host (:func:`..train.step.to_device`).
+
+    Returns:
+      ``(total, items[4])``, items (fam_cls, fam_reg, odm_cls, odm_reg).
+    """
+    b = gt_boxes.shape[0]
+    init_all = torch.cat(outputs["init_anchors"], 0)
+    refine_all = torch.cat(outputs["refine_anchors"], 1).detach()
+    fam_assign = assign_labels(init_all, gt_boxes, gt_mask, imgs_size)
+    odm_assign = assign_labels(refine_all, gt_boxes, gt_mask, imgs_size)
+    fam_total_pos = (fam_assign >= 0).sum().clamp_min(b).float()
+    odm_total_pos = (odm_assign >= 0).sum().clamp_min(b).float()
+
+    fam_cls_loss = fam_reg_loss = odm_cls_loss = odm_reg_loss = 0.0
+    start = 0
+    for lvl, anchors in enumerate(outputs["init_anchors"]):
+        n = anchors.shape[0]
+        sl = slice(start, start + n)
+        start += n
+        w = fpn_balance[lvl]
+        c, r = _level_loss(
+            outputs["fam_bbox"][lvl].reshape(b, n, 5),
+            outputs["fam_cls"][lvl].reshape(b, n, num_classes),
+            anchors[None].expand(b, n, 5), fam_assign[:, sl],
+            gt_boxes, gt_classes, num_classes, fl_gamma, fl_alpha, smooth_beta)
+        fam_cls_loss = fam_cls_loss + w * c
+        fam_reg_loss = fam_reg_loss + w * r
+        c, r = _level_loss(
+            outputs["odm_bbox"][lvl].reshape(b, n, 5),
+            outputs["odm_cls"][lvl].reshape(b, n, num_classes),
+            refine_all[:, sl], odm_assign[:, sl],
+            gt_boxes, gt_classes, num_classes, fl_gamma, fl_alpha, smooth_beta)
+        odm_cls_loss = odm_cls_loss + w * c
+        odm_reg_loss = odm_reg_loss + w * r
+
+    fam_cls_loss = fam_cls_loss / fam_total_pos
+    fam_reg_loss = fam_reg_loss / fam_total_pos * reg_balance
+    odm_cls_loss = odm_cls_loss / odm_total_pos * odm_balance
+    odm_reg_loss = odm_reg_loss / odm_total_pos * odm_balance * reg_balance
+    items = torch.stack([fam_cls_loss, fam_reg_loss, odm_cls_loss, odm_reg_loss])
+    return items.sum(), items
 
 
 def decode_levels(outputs, max_before_nms_per_level: int = 2000):

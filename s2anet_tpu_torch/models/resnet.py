@@ -1,9 +1,13 @@
-"""ResNet backbones in eval mode, returning C3, C4, C5.
+"""ResNet backbones, returning C3, C4, C5.
 
 Counterpart of ``s2anet_tpu/models/resnet.py`` (``ResNetBackbone``,
 ``BasicBlock``, ``Bottleneck``). The JAX stem computes its 7x7/2 pad-3 conv
 through a space-to-depth rewrite, a TPU layout trick for the same math; here
 it is the plain conv. Max pool 3/2 pad 1.
+
+In train mode every BatchNorm trains (``models/bn.py``): nothing frozen and
+no ``norm_eval``, the settings of ``configs/dota_r50.yaml``. Convs compute
+in the input's type (``models/conv.py``).
 
 Module names follow the reference's torch key layout, which
 ``s2anet_tpu/models/torch_import.py::convert_reference_s2anet`` reads:
@@ -17,6 +21,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .bn import BatchNorm2d
+from .conv import Conv2d
+
 ARCH_SETTINGS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
     "resnet34": ("basic", (3, 4, 6, 3)),
@@ -27,8 +34,8 @@ ARCH_SETTINGS = {
 
 
 def _downsample(cin, cout, stride):
-    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False),
-                         nn.BatchNorm2d(cout))
+    return nn.Sequential(Conv2d(cin, cout, 1, stride, bias=False),
+                         BatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
@@ -36,10 +43,10 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv1 = Conv2d(cin, planes, 3, stride, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = (_downsample(cin, planes, stride)
                            if stride != 1 or cin != planes else None)
 
@@ -56,12 +63,12 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out)
+        self.conv1 = Conv2d(cin, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = Conv2d(planes, out, 1, bias=False)
+        self.bn3 = BatchNorm2d(out)
         self.downsample = (_downsample(cin, out, stride)
                            if stride != 1 or cin != out else None)
 
@@ -87,8 +94,8 @@ class ResNet(nn.Module):
         super().__init__()
         kind, layer_cfg = ARCH_SETTINGS[arch]
         block = BasicBlock if kind == "basic" else Bottleneck
-        stem = nn.Sequential(nn.Conv2d(3, 64, 7, 2, 3, bias=False),
-                             nn.BatchNorm2d(64), nn.ReLU())
+        stem = nn.Sequential(Conv2d(3, 64, 7, 2, 3, bias=False),
+                             BatchNorm2d(64), nn.ReLU())
         stages = []
         cin, planes = 64, 64
         for s, n_blocks in enumerate(layer_cfg):

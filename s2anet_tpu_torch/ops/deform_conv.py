@@ -1,17 +1,21 @@
 """AlignConv: analytic offsets and the 3x3 deformable convolution (NHWC).
 
 Counterpart of ``s2anet_tpu/ops/deform_conv.py`` (``align_conv_offsets``,
-the gather-path forward) and of the TPU kernel
-``s2anet_tpu/ops/pallas/deform_kernel.py::_fwd_kernel``, whose port is
-``csrc/deform_conv.cu``.
+the gather path) and of the TPU kernels
+``s2anet_tpu/ops/pallas/deform_kernel.py::_fwd_kernel`` and ``_bwd_kernel``,
+whose ports are the two entry points of ``csrc/deform_conv.cu``.
 
 Layouts follow the JAX package: x ``[B, H, W, C]``, offsets
 ``[B, H, W, 9, 2]`` as (dy, dx) with tap ``t = ky*3 + kx``, weight
 ``[3, 3, C, Cout]`` (HWIO). Only stride 1, 'same' padding, dilation 1 and one
 deformable group -- the configuration AlignConv uses.
 
-:func:`deform_conv2d` runs :func:`deform_conv2d_plain` for a CPU tensor and
-the CUDA kernel for a CUDA tensor; it never moves work between devices.
+:func:`deform_conv2d` runs :func:`deform_conv2d_plain` for a CPU tensor,
+differentiated by autograd, and for a CUDA tensor the forward kernel inside
+an ``autograd.Function`` whose backward is the backward kernel; it never
+moves work between devices. The offsets get no gradient on the kernel path:
+AlignConv derives them from detached anchors, as the TPU kernel's VJP
+(``_hat_core_bwd``) assumes.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from .._ext import I, P, Kernel
 
 DEFORM_FWD = Kernel("deform_conv", "s2a_deform_conv2d_fwd",
                     [P, P, P, P, I, I, I, I, I, I, P])
+DEFORM_BWD = Kernel("deform_conv", "s2a_deform_conv2d_bwd",
+                    [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,26 +119,51 @@ def deform_conv2d_plain(x: torch.Tensor, offsets: torch.Tensor,
     return acc.reshape(b, h, w, cout).to(x.dtype)
 
 
-def deform_conv2d_cuda(x: torch.Tensor, offsets: torch.Tensor,
-                       weight: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel (``csrc/deform_conv.cu``) on CUDA tensors."""
-    if not (x.is_cuda and offsets.is_cuda and weight.is_cuda):
-        raise ValueError("deform_conv2d_cuda takes CUDA tensors")
+def deform_conv2d_bwd_plain(x: torch.Tensor, offsets: torch.Tensor,
+                            weight: torch.Tensor, grad: torch.Tensor):
+    """Plain PyTorch AlignConv backward: ``(dx, dweight)`` by autograd of
+    :func:`deform_conv2d_plain` (offsets held constant), the reference of
+    the backward kernel."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        wr = weight.detach().requires_grad_(True)
+        out = deform_conv2d_plain(xr, offsets.detach(), wr)
+        dx, dw = torch.autograd.grad(out, (xr, wr), grad)
+    return dx, dw
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, starting on a 16-byte boundary (the bf16 kernels read
+    16-byte vectors; a view may start off-alignment)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check(name: str, x: torch.Tensor, offsets: torch.Tensor,
+           weight: torch.Tensor, *more: torch.Tensor) -> None:
+    if not all(t.is_cuda for t in (x, offsets, weight, *more)):
+        raise ValueError(f"{name} takes CUDA tensors")
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"deform_conv2d_cuda: unsupported dtype {x.dtype}")
+        raise TypeError(f"{name}: unsupported dtype {x.dtype}")
     b, h, w, c = x.shape
     if weight.shape[:3] != (3, 3, c) or offsets.shape != (b, h, w, 9, 2):
         raise ValueError(
-            f"deform_conv2d_cuda: shapes x {tuple(x.shape)}, offsets "
+            f"{name}: shapes x {tuple(x.shape)}, offsets "
             f"{tuple(offsets.shape)}, weight {tuple(weight.shape)}")
     cout = weight.shape[-1]
     if x.dtype == torch.bfloat16 and (c % 8 or cout % 8):
-        raise ValueError("deform_conv2d_cuda: bfloat16 needs C and Cout "
-                         f"multiples of 8, got {c} and {cout}")
-    x = x.contiguous()
-    weight = weight.to(x.dtype).contiguous()
-    # the bf16 kernel reads 16-byte vectors: a view may start off-alignment
-    x, weight = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, weight))
+        raise ValueError(f"{name}: bfloat16 needs C and Cout multiples of 8, "
+                         f"got {c} and {cout}")
+
+
+def deform_conv2d_cuda(x: torch.Tensor, offsets: torch.Tensor,
+                       weight: torch.Tensor) -> torch.Tensor:
+    """The forward kernel (``csrc/deform_conv.cu``) on CUDA tensors."""
+    _check("deform_conv2d_cuda", x, offsets, weight)
+    b, h, w, c = x.shape
+    cout = weight.shape[-1]
+    x = _aligned(x)
+    weight = _aligned(weight.to(x.dtype))
     offsets = offsets.float().contiguous()
     out = torch.empty(b, h, w, cout, dtype=x.dtype, device=x.device)
     DEFORM_FWD(x.data_ptr(), offsets.data_ptr(), weight.data_ptr(),
@@ -141,10 +172,61 @@ def deform_conv2d_cuda(x: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
+def dw_chunks(cells: int, c: int, cout: int, dtype: torch.dtype) -> int:
+    """Cell chunks of the weight-gradient kernel: enough blocks to fill the
+    card (about 4 per SM of an H100's 132) with one atomic add per element
+    of dW per block; each chunk holds whole 64-cell (bf16) or 32-cell (f32)
+    steps."""
+    step = 64 if dtype == torch.bfloat16 else 32
+    others = 9 * -(-c // 64) * -(-cout // 256)
+    return max(1, min(-(-528 // others), -(-cells // step)))
+
+
+def deform_conv2d_bwd_cuda(x: torch.Tensor, offsets: torch.Tensor,
+                           weight: torch.Tensor, grad: torch.Tensor):
+    """The backward kernel on CUDA tensors: ``(dx, dweight)`` of the
+    forward's output gradient ``grad [B, H, W, Cout]``; ``dx`` in x's type,
+    ``dweight [3, 3, C, Cout]`` in weight's type (both summed in float32)."""
+    _check("deform_conv2d_bwd_cuda", x, offsets, weight, grad)
+    b, h, w, c = x.shape
+    cout = weight.shape[-1]
+    if grad.shape != (b, h, w, cout):
+        raise ValueError(f"deform_conv2d_bwd_cuda: grad {tuple(grad.shape)}, "
+                         f"want {(b, h, w, cout)}")
+    x = _aligned(x)
+    wt = _aligned(weight.to(x.dtype))
+    grad = _aligned(grad.to(x.dtype))
+    offsets = offsets.float().contiguous()
+    dx32 = torch.zeros(b, h, w, c, dtype=torch.float32, device=x.device)
+    dx = dx32 if x.dtype == torch.float32 else torch.empty_like(x)
+    dw = torch.zeros(3, 3, c, cout, dtype=torch.float32, device=x.device)
+    chunks = dw_chunks(b * h * w, c, cout, x.dtype)
+    DEFORM_BWD(x.data_ptr(), offsets.data_ptr(), wt.data_ptr(), grad.data_ptr(),
+               dx32.data_ptr(), dx.data_ptr(), dw.data_ptr(), b, h, w, c, cout,
+               chunks, _DTYPE_CODE[x.dtype],
+               torch.cuda.current_stream(x.device).cuda_stream)
+    return dx, dw.to(weight.dtype)
+
+
+class _DeformConvCUDA(torch.autograd.Function):
+    """Forward and backward kernels; the offsets get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, weight):
+        ctx.save_for_backward(x, offsets, weight)
+        return deform_conv2d_cuda(x, offsets, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, offsets, weight = ctx.saved_tensors
+        dx, dw = deform_conv2d_bwd_cuda(x, offsets, weight, grad)
+        return dx, None, dw
+
+
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,
                   weight: torch.Tensor) -> torch.Tensor:
     """3x3 deformable conv, NHWC: the plain version for a CPU tensor, the
-    CUDA kernel for a CUDA tensor."""
+    CUDA kernels for a CUDA tensor."""
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offsets, weight)
-    return deform_conv2d_cuda(x, offsets, weight)
+    return _DeformConvCUDA.apply(x, offsets, weight)

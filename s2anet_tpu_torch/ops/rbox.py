@@ -39,6 +39,25 @@ def rbox_to_poly(rboxes: torch.Tensor) -> torch.Tensor:
     return verts.reshape(*verts.shape[:-2], 8)
 
 
+def rboxes_encode(anchors: torch.Tensor, gt_rboxes: torch.Tensor) -> torch.Tensor:
+    """Deltas ``[..., 5]`` of ``gt_rboxes`` against ``anchors`` (both
+    ``[..., 5]``, broadcast): the xy offset rotated into the anchor frame and
+    divided by the anchor's w/h, log wh ratios, and ``norm_angle`` of the
+    angle difference over pi."""
+    ax, ay, aw, ah, aa = anchors.unbind(-1)
+    gx, gy, gw, gh, ga = gt_rboxes.unbind(-1)
+    ox = gx - ax
+    oy = gy - ay
+    cosa = torch.cos(aa)
+    sina = torch.sin(aa)
+    dx = (cosa * ox + sina * oy) / aw
+    dy = (-sina * ox + cosa * oy) / ah
+    dw = torch.log(gw / aw)
+    dh = torch.log(gh / ah)
+    da = norm_angle(ga - aa) / PI
+    return torch.stack([dx, dy, dw, dh, da], -1)
+
+
 def rboxes_decode(anchors: torch.Tensor, deltas: torch.Tensor,
                   wh_ratio_clip: float = 16 / 1000) -> torch.Tensor:
     """Decode ``[..., 5]`` deltas against ``[..., 5]`` anchors.

@@ -66,12 +66,7 @@ class S2ANetPredictor:
         model.eval()
         if cfg.fold_bn:
             fold_bn(model)
-        model.to(self.device).cast(dtype)
-        # NHWC convs: the AlignConv kernel then reads its input in place
-        for p in model.parameters():
-            if p.dim() == 4:
-                p.data = p.data.contiguous(memory_format=torch.channels_last)
-        self.model = model
+        self.model = model.to(self.device).cast(dtype).channels_last()
 
     def post_kwargs(self):
         c = self.cfg

@@ -1,4 +1,6 @@
-"""Card-only tests of the port's CUDA kernels against their plain versions.
+"""Card-only tests of the port's CUDA kernels against their plain versions,
+of their launch counts through the public functions, and of the wrappers'
+input checks.
 
 They need an NVIDIA GPU and ``nvcc``; here they skip. On the card:
 
@@ -15,6 +17,7 @@ import torch
 from s2anet_tpu_torch.config import ModelConfig
 from s2anet_tpu_torch.ops import deform_conv as dc
 from s2anet_tpu_torch.ops import iou_rotated as iou
+from s2anet_tpu_torch.ops import moments as mo
 from s2anet_tpu_torch.ops import nms_rotated as nms
 
 pytestmark = pytest.mark.cuda
@@ -108,3 +111,110 @@ def test_small_predictor_kernel_path(dev):
     assert nms.NMS_MASK.launches == n_mask + 1
     assert boxes.shape == (2, 300, 6) and torch.isfinite(boxes).all()
     assert valid.any()
+
+
+@pytest.mark.parametrize("shape,scale,dtype,tol", [
+    ((2, 32, 32, 64, 32), 1.5, torch.float32, 1e-3),
+    ((1, 19, 41, 40, 24), 6.0, torch.float32, 1e-3),
+    ((2, 1, 1, 16, 16), 3.0, torch.float32, 1e-3),
+    ((2, 16, 48, 256, 256), 1.5, torch.bfloat16, 2e-2),
+    ((1, 19, 41, 40, 24), 6.0, torch.bfloat16, 2e-2),
+])
+def test_deform_bwd_kernel_matches_plain(dev, gen, shape, scale, dtype, tol):
+    """dx and dW against autograd of the plain forward: float32 at 1e-3,
+    bfloat16 at 2e-2 of the largest reference value."""
+    b, h, w, c, co = shape
+    x = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
+    off = (torch.randn(b, h, w, 9, 2, generator=gen, device=dev) * scale).to(dtype)
+    wt = (torch.randn(3, 3, c, co, generator=gen, device=dev) * 0.05).to(dtype)
+    g = torch.randn(b, h, w, co, generator=gen, device=dev).to(dtype)
+    xk = x.clone().requires_grad_(True)
+    wk = wt.clone().requires_grad_(True)
+    n_fwd, n_bwd = dc.DEFORM_FWD.launches, dc.DEFORM_BWD.launches
+    dc.deform_conv2d(xk, off, wk).backward(g)
+    torch.cuda.synchronize()
+    assert (dc.DEFORM_FWD.launches, dc.DEFORM_BWD.launches) == (n_fwd + 1, n_bwd + 1)
+    dx, dw = dc.deform_conv2d_bwd_plain(x, off, wt, g)
+    for got, ref in ((xk.grad, dx), (wk.grad, dw)):
+        assert got.dtype == dtype
+        scale = 1.0 if dtype == torch.float32 else ref.float().abs().max().item()
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64, 64, 64), (2, 8, 8, 2048), (3, 5, 7, 24)])
+def test_moment_kernels_match_plain(dev, gen, shape, dtype):
+    """Sums relative to the sum of magnitudes (float32 summation order)."""
+    x = (torch.rand(shape, generator=gen, device=dev) * 2 + 0.3).to(dtype)
+    g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    n_m, n_p = mo.MOMENTS.launches, mo.PAIR.launches
+    got = mo.channel_moments(x) + mo.grad_channel_sums(g, x)
+    torch.cuda.synchronize()
+    assert (mo.MOMENTS.launches, mo.PAIR.launches) == (n_m + 1, n_p + 1)
+    want = mo.channel_moments_plain(x) + mo.grad_channel_sums_plain(g, x)
+    xf, gf = x.float().reshape(-1, shape[-1]), g.float().reshape(-1, shape[-1])
+    mags = (xf.abs().sum(0), (xf * xf).sum(0), gf.abs().sum(0), (gf * xf).abs().sum(0))
+    for a, b, m in zip(got, want, mags):
+        assert a.dtype == torch.float32
+        assert ((a - b).abs() <= 1e-5 * m).all()
+
+
+def test_bn_train_runs_the_kernels(dev, gen):
+    """The training BatchNorm on the card against the same module with the
+    plain reductions; gradients as tests/test_pallas_bn.py bounds them."""
+    from unittest import mock
+
+    from s2anet_tpu_torch.models import bn as bn_mod
+
+    x = torch.randn(4, 64, 16, 16, generator=gen, device=dev) + 0.5
+    x = x.contiguous(memory_format=torch.channels_last)
+    runs = []
+    for plain in (False, True):
+        bn = bn_mod.BatchNorm2d(64).to(dev).train()
+        xx = x.clone().requires_grad_(True)
+        n_m, n_p = mo.MOMENTS.launches, mo.PAIR.launches
+        with mock.patch.object(bn_mod, "channel_moments",
+                               mo.channel_moments_plain if plain else mo.channel_moments), \
+                mock.patch.object(bn_mod, "grad_channel_sums",
+                                  mo.grad_channel_sums_plain if plain else mo.grad_channel_sums):
+            torch.sin(bn(xx)).sum().backward()
+        torch.cuda.synchronize()
+        assert (mo.MOMENTS.launches - n_m, mo.PAIR.launches - n_p) == ((0, 0) if plain else (1, 1))
+        runs.append((xx.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var))
+    for a, b in zip(*runs):
+        assert (a - b).abs().max().item() / max(b.abs().max().item(), 1.0) < 1e-5
+
+
+def test_kernel_wrappers_reject_cpu_and_non_channels_last(dev):
+    from s2anet_tpu_torch.models.bn import BatchNorm2d
+
+    with pytest.raises(ValueError):
+        mo.channel_moments_cuda(torch.zeros(4, 64))
+    with pytest.raises(ValueError):
+        mo.grad_channel_sums_cuda(torch.zeros(4, 64), torch.zeros(4, 64))
+    with pytest.raises(ValueError):
+        dc.deform_conv2d_bwd_cuda(torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 9, 2),
+                                  torch.zeros(3, 3, 8, 8), torch.zeros(1, 4, 4, 8))
+    nchw = torch.zeros(2, 64, 8, 8, device=dev)  # contiguous NCHW
+    with pytest.raises(ValueError):
+        mo.channel_moments(nchw.permute(0, 2, 3, 1))
+    with pytest.raises(ValueError):
+        BatchNorm2d(64).to(dev).train()(nchw)
+
+
+def test_small_train_step_kernel_path(dev):
+    """R-18 at 128^2, batch 2, bf16: one step launches every training
+    kernel as often as the model has layers."""
+    from s2anet_tpu_torch.train.__main__ import KERNELS, main
+
+    before = {k.symbol: k.launches for k in KERNELS}
+    summary = main(["--backbone", "resnet18", "--img-size", "128", "--batch-size", "2",
+                    "--steps", "1", "--warmup", "0", "--synthetic", "1"])
+    assert np.isfinite(summary["losses"]).all()
+    per_step = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
+    assert per_step == {
+        "s2a_deform_conv2d_fwd": 5, "s2a_deform_conv2d_bwd": 5,
+        "s2a_box_iou_rotated": 4,  # FAM and ODM assignment, per image
+        "s2a_nms_rotated_mask": 0, "s2a_nms_rotated_sweep": 0,
+        "s2a_channel_moments": 20, "s2a_grad_channel_sums": 20}

@@ -2,8 +2,9 @@
 
 Inputs come from a seeded numpy RNG and go through the JAX function and its
 counterpart in ``s2anet_tpu_torch``: box geometry, anchor grids, the ARF
-table and rotation-invariant pooling, AlignConv offsets and the serving
-config. Also checks that the port imports nothing of JAX.
+table and rotation-invariant pooling, AlignConv offsets and the model
+config. Also checks that the port, training slice included, imports nothing
+of JAX and catches no kernel failure.
 """
 
 import ast
@@ -133,6 +134,8 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    assert {"moments.py", "bn.py", "assigner.py", "losses.py", "schedule.py",
+            "optim.py", "state.py", "step.py", "__main__.py"} <= {f.name for f in files}
     banned = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "s2anet_tpu")
     for f in files:
         for mod in _imports(f):
@@ -140,8 +143,11 @@ def test_port_imports_no_jax():
 
 
 def test_wrappers_have_no_try():
-    """A failed kernel build or launch on a CUDA tensor raises: no wrapper
-    module catches it to run the plain version instead."""
-    for f in sorted((PORT / "ops").glob("*.py")):
+    """A failed kernel build or launch on a CUDA tensor raises: no module of
+    the port (wrappers, the models and the train step that call them)
+    catches it to run the plain version instead."""
+    files = sorted(PORT.rglob("*.py"))
+    assert {"moments.py", "bn.py", "step.py", "__main__.py"} <= {f.name for f in files}
+    for f in files:
         tree = ast.parse(f.read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), f
