@@ -23,16 +23,22 @@ last line:
                by (label, score, centre within 1 px)
   6. times     chips/s at batch 8 (2 warm-up batches, 7 timed), peak device
                memory, each kernel against its plain version (CUDA events),
-               and a profiler table of one batch (--out, default runs/chip_smoke/)
+               the AlignConv forward per level P3-P7 (TFLOP/s, gathered
+               bytes/s, and cuDNN's bf16 3x3 convolution of the same shape
+               as a yardstick, dense_conv_ms), and a profiler table of one
+               batch (--out, default runs/chip_smoke/)
   7. kernel 3  AlignConv backward (dx, dW) vs autograd of the plain forward:
                P3 shapes (batch 2, 128^2, C = Cout = 256) in f32 (TF32 off)
-               and bf16, odd, 1x1 and off-image maps; f32 within 1e-3 and
-               bf16 within 2e-2 of the largest reference value; P3-P7 times
+               and bf16, odd, 1x1, P7 and off-image maps; f32 within 1e-3
+               and bf16 within 2e-2 of the largest reference value; bf16 dW
+               equal bit for bit over repeated runs; P3-P7 times, and per
+               level the dW, dx, finishing and memset launches (profiler)
   8. kernels 5, 6  BN moment and pair sums vs their plain versions at the
                R-50 stem and a layer-4 shape, f32 and bf16, within 1e-5 of
                the sum of magnitudes; times over the 53 BatchNorm inputs of
-               one R-50 1024^2 batch-8 step against torch.batch_norm_stats,
-               torch.batch_norm_backward_reduce, and the whole BN forward
+               one R-50 1024^2 batch-8 step, each kernel in turns with its
+               library call (torch.batch_norm_stats,
+               torch.batch_norm_backward_reduce), and the whole BN forward
                and backward against cuDNN's F.batch_norm
   9. training  python -m s2anet_tpu_torch.train at R-50 1024^2 batch 8 bf16,
                clamp 6.0, 3 warm-up and 5 timed steps: finite losses,
@@ -52,8 +58,9 @@ on its path (training, or serving for the NMS kernels), its largest error
 against the plain version, its time, the plain version's and the library
 call's time where there is one, and the least time the card could take
 (``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
-over 989 TFLOP/s bf16 or 67 TFLOP/s f32, H100 SXM). The last line is
-``{"ok": true, "device": {...}}``. Exits 1 without a CUDA device.
+over 989 TFLOP/s bf16 or 67 TFLOP/s f32, H100 SXM). Every time is the
+median of 5 timed loops (CUDA events); lines give the spread. The last
+line is ``{"ok": true, "device": {...}}``. Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -71,6 +78,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 BATCH, SIZE, SEED = 8, 1024, 0
+REPEATS = 5  # timed loops per measurement; the median is reported
 # H100 SXM peaks (NVIDIA's data sheet; full rates at 700 W)
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
@@ -102,11 +110,9 @@ def check(ok: bool, what: str) -> None:
         raise Failed(what)
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``iters`` runs after one
-    warm-up, from CUDA events."""
-    fn()
-    torch.cuda.synchronize()
+def loop_ms(torch, fn, iters: int) -> float:
+    """Device milliseconds per run of ``fn`` over one loop of ``iters`` runs,
+    from CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -115,6 +121,34 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms(torch, fn, iters: int, repeats: int = REPEATS):
+    """``(median, spread)`` of the device milliseconds per run of ``fn``
+    over ``repeats`` timed loops of ``iters`` runs, after one warm-up;
+    spread = (slowest - fastest) / median of the loops."""
+    fn()
+    torch.cuda.synchronize()
+    return median_spread([loop_ms(torch, fn, iters) for _ in range(repeats)])
+
+
+def median_spread(ts):
+    ts = sorted(ts)
+    med = ts[len(ts) // 2]
+    return med, (ts[-1] - ts[0]) / med if med > 0 else 0.0
+
+
+def paired_ms(torch, fa, fb, iters: int, repeats: int = REPEATS):
+    """Two functions timed in turns (a, b, a, b, ...) after a warm-up of
+    each: ``((median, spread) of a, (median, spread) of b)``."""
+    fa()
+    fb()
+    torch.cuda.synchronize()
+    ta, tb = [], []
+    for _ in range(repeats):
+        ta.append(loop_ms(torch, fa, iters))
+        tb.append(loop_ms(torch, fb, iters))
+    return median_spread(ta), median_spread(tb)
 
 
 def bound(nbytes: float, ops: float, flop_s: float):
@@ -206,6 +240,48 @@ def bn_input_shapes(torch, arch: str, batch: int, size: int):
     return shapes
 
 
+LEVELS = ("P3", "P4", "P5", "P6", "P7")
+
+
+def gather_bytes(cells: int, c: int) -> int:
+    """Bytes the bf16 AlignConv gather reads (L1/L2 side): 9 taps x 4
+    corners x C channels x 2 bytes per cell."""
+    return cells * 9 * 4 * c * 2
+
+
+def scatter_bytes(cells: int, c: int) -> int:
+    """float32 bytes the dx scatter reduces into dx: 9 taps x 4 corners x C
+    channels x 4 bytes per cell (corners outside the image are skipped)."""
+    return cells * 9 * 4 * c * 4
+
+
+def rate(amount: float, ms: float) -> float:
+    """``amount`` per millisecond in units of 1e9 per millisecond (TFLOP/s or
+    TB/s for FLOP or bytes); nan for a time of 0."""
+    return amount / ms / 1e9 if ms > 0 else float("nan")
+
+
+def kernel_split(torch, fn, runs: int = 3) -> dict:
+    """Device milliseconds per call of ``fn`` of each kernel it launches,
+    from the profiler (one warm-up call first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            out[e.key] = out.get(e.key, 0.0) + t / 1000 / runs
+    return out
+
+
 def phase_deform_bwd(torch, dev, gen, levels):
     """Kernel 3 against autograd of the plain forward; P3-P7 times."""
     from s2anet_tpu_torch.ops import deform_conv as dc
@@ -219,6 +295,9 @@ def phase_deform_bwd(torch, dev, gen, levels):
         ("odd 19x41 C40->24 bf16", (1, 19, 41, 40, 24), 6.0, torch.bfloat16, 2e-2),
         ("1x1", (2, 1, 1, 256, 256), 3.0, torch.float32, 1e-3),
         ("odd 3x37 bf16", (3, 3, 37, 256, 256), 6.0, torch.bfloat16, 2e-2),
+        ("P7 bf16", (8, 8, 8, 256, 256), 1.5, torch.bfloat16, 2e-2),
+        ("1x1 bf16", (2, 1, 1, 256, 256), 3.0, torch.bfloat16, 2e-2),
+        ("odd 19x41 C264->264 bf16", (1, 19, 41, 264, 264), 3.0, torch.bfloat16, 2e-2),
     ]
     for name, (b, h, w, c, co), scale, dtype, tol in cases:
         x = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
@@ -240,21 +319,52 @@ def phase_deform_bwd(torch, dev, gen, levels):
         check(errs[0][2] and errs[1][2],
               f"{name}: dx max |kernel - plain| {errs[0][0]:.3g} (max |dx| {errs[0][1]:.3g}), "
               f"dW {errs[1][0]:.3g} (max |dW| {errs[1][1]:.3g}); bound {tol} x max")
+    x = torch.randn(2, 32, 32, 256, generator=gen, device=dev).bfloat16()
+    off = (torch.randn(2, 32, 32, 9, 2, generator=gen, device=dev) * 1.5).bfloat16()
+    wt = (torch.randn(3, 3, 256, 256, generator=gen, device=dev) * 0.05).bfloat16()
+    g = torch.randn(2, 32, 32, 256, generator=gen, device=dev).bfloat16()
+    dws = [dc.deform_conv2d_bwd_cuda(x, off, wt, g)[1] for _ in range(3)]
+    check(all(torch.equal(dws[0], d) for d in dws[1:]),
+          "bf16 dW of three runs on the same inputs: equal bit for bit")
     grads = [torch.randn(x.shape[:3] + (wl.shape[-1],), generator=gen,
                          device=dev).bfloat16() for x, _, wl in levels]
-    t_k = cuda_ms(torch, lambda: [dc.deform_conv2d_bwd_cuda(*a, g)
-                                  for a, g in zip(levels, grads)], 5)
-    t_p = cuda_ms(torch, lambda: [dc.deform_conv2d_bwd_plain(*a, g)
-                                  for a, g in zip(levels, grads)], 1)
+    t_k, s_k = cuda_ms(torch, lambda: [dc.deform_conv2d_bwd_cuda(*a, g)
+                                       for a, g in zip(levels, grads)], 5)
+    t_p, _ = cuda_ms(torch, lambda: [dc.deform_conv2d_bwd_plain(*a, g)
+                                     for a, g in zip(levels, grads)], 1)
     nbytes = ops = 0
     for (x, _, wl), g in zip(levels, grads):
         cells, c, co = x.numel() // x.shape[-1], x.shape[-1], wl.shape[-1]
         nbytes += cells * (2 * c + 18 * 4 + 2 * co + 2 * c) + 9 * c * co * (2 + 4)
         ops += 2 * 2 * cells * 9 * c * co
     b_ms, b_by = bound(nbytes, ops, BF16_FLOP_S)
-    say(f"   deform_conv2d backward P3-P7 (one batch of 8, bf16): kernel {t_k:.3f} ms, "
-        f"plain {t_p:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {ops / 1e9:.0f} GFLOP, "
-        f"{nbytes / 1e6:.0f} MB)")
+    say(f"   deform_conv2d backward P3-P7 (one batch of 8, bf16): kernel {t_k:.3f} ms "
+        f"(median of {REPEATS}, spread {s_k:.1%}), plain {t_p:.3f} ms, bound {b_ms:.3f} ms "
+        f"({b_by}: {ops / 1e9:.0f} GFLOP, {nbytes / 1e6:.0f} MB)")
+    # per level: the four launches of one backward, from the profiler
+    split_sum: dict = {}
+    for name, (x, o, wl), g in zip(LEVELS, levels, grads):
+        cells, c, co = x.numel() // x.shape[-1], x.shape[-1], wl.shape[-1]
+        t_l, _ = cuda_ms(torch, lambda x=x, o=o, wl=wl, g=g:
+                         dc.deform_conv2d_bwd_cuda(x, o, wl, g), 5)
+        part = {"dW": 0.0, "dx": 0.0, "finish": 0.0, "memset": 0.0}
+        for key, ms in kernel_split(torch, lambda x=x, o=o, wl=wl, g=g:
+                                    dc.deform_conv2d_bwd_cuda(x, o, wl, g)).items():
+            grp = ("dW" if "dw_bf16" in key else "dx" if "dx_bf16" in key
+                   else "finish" if "finish" in key else "memset" if "Memset" in key else None)
+            if grp:
+                part[grp] += ms
+        for k, v in part.items():
+            split_sum[k] = split_sum.get(k, 0.0) + v
+        flop = 2 * cells * 9 * c * co
+        say(f"   {name} {tuple(x.shape)}: backward {t_l:.4f} ms; dW {part['dW']:.4f} ms "
+            f"({rate(flop, part['dW']):.1f} TFLOP/s, gathered "
+            f"{rate(gather_bytes(cells, c), part['dW']):.2f} TB/s), dx {part['dx']:.4f} ms "
+            f"({rate(flop, part['dx']):.1f} TFLOP/s, reduced "
+            f"{rate(scatter_bytes(cells, c), part['dx']):.2f} TB/s), finish "
+            f"{part['finish']:.4f} ms, memset {part['memset']:.4f} ms")
+    say(f"   P3-P7 split (profiler): dW {split_sum['dW']:.3f} ms, dx {split_sum['dx']:.3f} ms, "
+        f"finish {split_sum['finish']:.3f} ms, memset {split_sum['memset']:.3f} ms")
     return dict(max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
@@ -290,48 +400,63 @@ def phase_moments(torch, dev, gen):
     shapes = bn_input_shapes(torch, "resnet50", BATCH, SIZE)
     check(len(shapes) == 53, f"R-50 at {SIZE}^2 batch {BATCH}: {len(shapes)} BatchNorm inputs, "
           f"{sum(n * c * h * w for n, c, h, w in shapes) / 1e9:.3f} G elements")
-    t = dict.fromkeys(("mk", "mp", "ml", "pk", "pp", "pl", "bk", "bl"), 0.0)
+    # every BN input of the step at once; kernel and library call timed in
+    # turns over whole sweeps of the 53 inputs, medians of REPEATS sweeps
+    data = []
     m_bytes = p_bytes = m_ops = 0
     for n, c, h, w in shapes:
         x = (torch.randn(n, h, w, c, generator=gen, device=dev) + 0.3).bfloat16()
         g = torch.randn(n, h, w, c, generator=gen, device=dev).bfloat16()
         xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels-last NCHW
-        t["mk"] += cuda_ms(torch, lambda: mo.channel_moments_cuda(x), 5)
-        t["mp"] += cuda_ms(torch, lambda: mo.channel_moments_plain(x), 2)
-        t["ml"] += cuda_ms(torch, lambda: torch.batch_norm_stats(xc, 1e-5), 5)
         mean, invstd = torch.batch_norm_stats(xc, 1e-5)
-        weight = torch.ones(c, device=dev)
-        t["pk"] += cuda_ms(torch, lambda: mo.grad_channel_sums_cuda(g, x), 5)
-        t["pp"] += cuda_ms(torch, lambda: mo.grad_channel_sums_plain(g, x), 2)
-        t["pl"] += cuda_ms(torch, lambda: torch.batch_norm_backward_reduce(
-            gc, xc, mean, invstd, weight, True, True, True), 5)
+        data.append((x, g, xc, gc, mean, invstd, torch.ones(c, device=dev)))
+        rows = n * h * w
+        m_bytes += rows * c * 2 + 2 * c * 4
+        p_bytes += 2 * rows * c * 2 + 2 * c * 4
+        m_ops += 3 * rows * c
+
+    def sweep(fn):
+        return lambda: [fn(*d) for d in data]
+
+    (mk, mk_s), (ml, ml_s) = paired_ms(
+        torch, sweep(lambda x, g, xc, gc, m, v, w: mo.channel_moments_cuda(x)),
+        sweep(lambda x, g, xc, gc, m, v, w: torch.batch_norm_stats(xc, 1e-5)), 3)
+    (pk, pk_s), (pl, pl_s) = paired_ms(
+        torch, sweep(lambda x, g, xc, gc, m, v, w: mo.grad_channel_sums_cuda(g, x)),
+        sweep(lambda x, g, xc, gc, m, v, w: torch.batch_norm_backward_reduce(
+            gc, xc, m, v, w, True, True, True)), 3)
+    mp, _ = cuda_ms(torch, sweep(lambda x, g, *_: mo.channel_moments_plain(x)), 1)
+    pp, _ = cuda_ms(torch, sweep(lambda x, g, *_: mo.grad_channel_sums_plain(g, x)), 1)
+    bk = bl = 0.0
+    for x, g, xc, gc, *_ in data:
+        c = x.shape[-1]
         bn = BatchNorm2d(c).to(dev).train()
         xr = xc.detach().requires_grad_(True)
         rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
         bias = torch.zeros(c, device=dev, requires_grad=True)
         wr = torch.ones(c, device=dev, requires_grad=True)
-        t["bk"] += cuda_ms(torch, lambda: bn(xr).backward(gc), 3)
-        t["bl"] += cuda_ms(torch, lambda: F.batch_norm(
-            xr, rm, rv, wr, bias, training=True, momentum=0.1, eps=1e-5).backward(gc), 3)
-        rows = n * h * w
-        m_bytes += rows * c * 2 + 2 * c * 4
-        p_bytes += 2 * rows * c * 2 + 2 * c * 4
-        m_ops += 3 * rows * c
-        del x, g, xc, gc, xr, bn
+        (t_bk, _), (t_bl, _) = paired_ms(
+            torch, lambda: bn(xr).backward(gc), lambda: F.batch_norm(
+                xr, rm, rv, wr, bias, training=True, momentum=0.1, eps=1e-5).backward(gc), 2)
+        bk += t_bk
+        bl += t_bl
+    del data
     mb, mby = bound(m_bytes, m_ops, F32_FLOP_S)
     pb, pby = bound(p_bytes, m_ops, F32_FLOP_S)
-    say(f"   over the 53 BN inputs of one step (bf16): moments kernel {t['mk']:.3f} ms, "
-        f"plain {t['mp']:.3f} ms, torch.batch_norm_stats {t['ml']:.3f} ms, bound "
+    say(f"   over the 53 BN inputs of one step (bf16), kernel and library call in turns, "
+        f"median of {REPEATS} sweeps (spread): moments kernel {mk:.3f} ms ({mk_s:.1%}), "
+        f"torch.batch_norm_stats {ml:.3f} ms ({ml_s:.1%}), plain {mp:.3f} ms, bound "
         f"{mb:.3f} ms ({mby}, {m_bytes / 1e9:.2f} GB)")
-    say(f"   pair kernel {t['pk']:.3f} ms, plain {t['pp']:.3f} ms, "
-        f"torch.batch_norm_backward_reduce {t['pl']:.3f} ms, bound {pb:.3f} ms "
+    say(f"   pair kernel {pk:.3f} ms ({pk_s:.1%}), torch.batch_norm_backward_reduce "
+        f"{pl:.3f} ms ({pl_s:.1%}): the kernel is {'slower' if pk > pl else 'faster'} by "
+        f"{abs(pk / pl - 1):.1%}; plain {pp:.3f} ms, bound {pb:.3f} ms "
         f"({pby}, {p_bytes / 1e9:.2f} GB)")
-    say(f"   whole BatchNorm forward + backward: port module {t['bk']:.3f} ms, "
-        f"cuDNN F.batch_norm {t['bl']:.3f} ms")
-    return (dict(max_abs_err=worst["moments"], ms=t["mk"], plain_ms=t["mp"], bound_ms=mb,
-                 bound_by=mby, library_ms=t["ml"]),
-            dict(max_abs_err=worst["pair"], ms=t["pk"], plain_ms=t["pp"], bound_ms=pb,
-                 bound_by=pby, library_ms=t["pl"]))
+    say(f"   whole BatchNorm forward + backward: port module {bk:.3f} ms, "
+        f"cuDNN F.batch_norm {bl:.3f} ms")
+    return (dict(max_abs_err=worst["moments"], ms=mk, plain_ms=mp, bound_ms=mb,
+                 bound_by=mby, library_ms=ml),
+            dict(max_abs_err=worst["pair"], ms=pk, plain_ms=pp, bound_ms=pb,
+                 bound_by=pby, library_ms=pl))
 
 
 def phase_train(torch, dev, card, out_dir):
@@ -386,7 +511,7 @@ def phase_train(torch, dev, card, out_dir):
     for e in kern:
         name = e.key
         grp = ("AlignConv forward kernel" if "deform_fwd" in name else
-               "AlignConv backward kernel" if "deform_bwd" in name or "cast_to_bf16" in name
+               "AlignConv backward kernel" if "deform_bwd" in name
                else "BN moment kernels" if "partial_sums" in name or "finish_sums" in name
                else "rotated IoU kernel" if "box_iou_rotated" in name
                else "optimizer and EMA (foreach)" if "multi_tensor" in name
@@ -519,6 +644,7 @@ def main(argv=None) -> int:
     out_dir = Path(parser.parse_args(argv).out)
 
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -559,7 +685,7 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "Compiling entry" in line:
                 say(f"     {line.strip().split('_cu_')[-1][:60]}")
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "arning" in line:
                 say(f"       {line.strip()}")
 
     # f32 comparisons: no TF32 anywhere (cuDNN convs default to it)
@@ -578,6 +704,9 @@ def main(argv=None) -> int:
         ("odd 19x41 C40->24", (1, 19, 41, 40, 24), 6.0, torch.float32, 1e-4),
         ("odd 3x37 bf16", (3, 3, 37, 256, 256), 6.0, torch.bfloat16, 2e-2),
         ("odd 19x41 C40->24 bf16", (1, 19, 41, 40, 24), 6.0, torch.bfloat16, 2e-2),
+        ("P7 bf16", (8, 8, 8, 256, 256), 1.5, torch.bfloat16, 2e-2),
+        ("1x1 bf16", (2, 1, 1, 256, 256), 3.0, torch.bfloat16, 2e-2),
+        ("odd 19x41 C264->264 bf16", (1, 19, 41, 264, 264), 3.0, torch.bfloat16, 2e-2),
     ]
     for name, (b, h, w, c, co), scale, dtype, tol in cases:
         x = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
@@ -774,19 +903,33 @@ def main(argv=None) -> int:
         ol = (torch.randn(BATCH, hw, hw, 9, 2, generator=gen, device=dev) * 1.5).bfloat16()
         wl = (torch.randn(3, 3, 256, 256, generator=gen, device=dev) * 0.05).bfloat16()
         levels.append((xl, ol, wl))
-    t_dk = cuda_ms(torch, lambda: [dc.deform_conv2d_cuda(*a) for a in levels], 10)
-    t_dp = cuda_ms(torch, lambda: [dc.deform_conv2d_plain(*a) for a in levels], 3)
-    t_p3 = cuda_ms(torch, lambda: dc.deform_conv2d_cuda(*levels[0]), 10)
+    t_dk, s_dk = cuda_ms(torch, lambda: [dc.deform_conv2d_cuda(*a) for a in levels], 10)
+    t_dp, _ = cuda_ms(torch, lambda: [dc.deform_conv2d_plain(*a) for a in levels], 1)
     nbytes = ops = 0
     for xl, _, wl in levels:
         cells, c, co = xl.numel() // xl.shape[-1], xl.shape[-1], wl.shape[-1]
         nbytes += cells * (2 * c + 18 * 4 + 2 * co) + 9 * c * co * 2
         ops += 2 * cells * 9 * c * co
     fwd_bound = bound(nbytes, ops, BF16_FLOP_S)
-    say(f"   deform_conv2d P3-P7 (one batch, bf16): kernel {t_dk:.3f} ms "
-        f"(P3 alone {t_p3:.3f} ms, {2 * 8 * 128 * 128 * 9 * 256 * 256 / t_p3 / 1e9:.1f} "
-        f"TFLOP/s), plain {t_dp:.3f} ms, bound {fwd_bound[0]:.3f} ms ({fwd_bound[1]}: "
-        f"{ops / 1e9:.0f} GFLOP)")
+    say(f"   deform_conv2d P3-P7 (one batch, bf16): kernel {t_dk:.3f} ms (median of "
+        f"{REPEATS}, spread {s_dk:.1%}), plain {t_dp:.3f} ms, bound {fwd_bound[0]:.3f} ms "
+        f"({fwd_bound[1]}: {ops / 1e9:.0f} GFLOP)")
+    # per level, beside the yardstick of cuDNN's bf16 channels-last 3x3
+    # convolution of the same shape: the same multiply-adds without the gather
+    dense_ms = 0.0
+    for name, (xl, ol, wl) in zip(LEVELS, levels):
+        cells, c, co = xl.numel() // xl.shape[-1], xl.shape[-1], wl.shape[-1]
+        t_l, _ = cuda_ms(torch, lambda xl=xl, ol=ol, wl=wl: dc.deform_conv2d_cuda(xl, ol, wl), 10)
+        xc = xl.permute(0, 3, 1, 2)  # NHWC memory is channels-last NCHW
+        wc = wl.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        t_c, _ = cuda_ms(torch, lambda xc=xc, wc=wc: F.conv2d(xc, wc, padding=1), 10)
+        dense_ms += t_c
+        flop = 2 * cells * 9 * c * co
+        say(f"   {name} {tuple(xl.shape)}: kernel {t_l:.4f} ms ({rate(flop, t_l):.1f} TFLOP/s, "
+            f"gathered {rate(gather_bytes(cells, c), t_l):.2f} TB/s); dense_conv_ms "
+            f"{t_c:.4f} (cuDNN 3x3, {rate(flop, t_c):.1f} TFLOP/s)")
+    say(f"   P3-P7: dense_conv_ms {dense_ms:.3f} (the yardstick; library_ms stays null: no "
+        f"PyTorch call computes a deformable convolution)")
 
     def run_mask():
         nms.NMS_MASK(cbc.data_ptr(), clc.data_ptr(), cvc.data_ptr(), cfg.nms_iou_thr,
@@ -797,10 +940,10 @@ def main(argv=None) -> int:
     def run_sweep():
         nms.NMS_SWEEP(mask.data_ptr(), cvc.data_ptr(), keep_buf.data_ptr(), BATCH, k, stream)
 
-    t_mk = cuda_ms(torch, run_mask, 10)
-    t_sk = cuda_ms(torch, run_sweep, 10)
-    t_mp = cuda_ms(torch, lambda: nms.overlap_plain(cb, cl, cv, cfg.nms_iou_thr, n), 2)
-    t_sp = cuda_ms(torch, lambda: nms.sweep_plain(over, cv[:, :n]), 2)
+    t_mk, _ = cuda_ms(torch, run_mask, 10)
+    t_sk, _ = cuda_ms(torch, run_sweep, 10)
+    t_mp, _ = cuda_ms(torch, lambda: nms.overlap_plain(cb, cl, cv, cfg.nms_iou_thr, n), 1)
+    t_sp, _ = cuda_ms(torch, lambda: nms.sweep_plain(over, cv[:, :n]), 1)
     # mask: the pairs j > i of valid candidates with equal labels run the
     # IoU routine; it writes the words on and above the diagonal
     cols = (k + 63) // 64
@@ -825,7 +968,7 @@ def main(argv=None) -> int:
         f"({mask_bound[1]}); sweep kernel {t_sk:.3f} ms vs plain sweep {t_sp:.3f} ms, "
         f"bound {sweep_bound[0]:.4f} ms ({sweep_bound[1]})")
     c0 = cb[0].contiguous()
-    t_ik4 = cuda_ms(torch, lambda: iou.box_iou_rotated_cuda(c0, c0), 10)
+    t_ik4, _ = cuda_ms(torch, lambda: iou.box_iou_rotated_cuda(c0, c0), 10)
     say(f"   box_iou_rotated {k}x{k} (image 0's candidates): kernel {t_ik4:.3f} ms "
         f"(max |kernel - plain| {iou_err:.3g})")
 
@@ -877,8 +1020,8 @@ def main(argv=None) -> int:
     got = iou.box_iou_rotated_cuda(anchors, gt_t)
     torch.cuda.synchronize()
     a_err = (got - iou.box_iou_rotated_plain(anchors, gt_t)).abs().max().item()
-    t_ik = cuda_ms(torch, lambda: iou.box_iou_rotated_cuda(anchors, gt_t), 20)
-    t_ip = cuda_ms(torch, lambda: iou.box_iou_rotated_plain(anchors, gt_t), 3)
+    t_ik, _ = cuda_ms(torch, lambda: iou.box_iou_rotated_cuda(anchors, gt_t), 20)
+    t_ip, _ = cuda_ms(torch, lambda: iou.box_iou_rotated_plain(anchors, gt_t), 1)
     a, g = anchors.shape[0], gt_t.shape[0]
     iou_bound = bound(4 * (5 * a + 5 * g + a * g), iou_ops(torch, anchors, gt_t), F32_FLOP_S)
     check(a_err <= 1e-6, f"box_iou_rotated at the assignment shape {a}x{g}: kernel "
@@ -897,7 +1040,7 @@ def main(argv=None) -> int:
              replaces="s2anet_tpu/ops/pallas/deform_kernel.py:195",
              launches=train_launches["s2a_deform_conv2d_fwd"], path="train",
              max_abs_err=deform_err, ms=t_dk, plain_ms=t_dp, bound_ms=fwd_bound[0],
-             bound_by=fwd_bound[1], library_ms=None),
+             bound_by=fwd_bound[1], library_ms=None, dense_conv_ms=dense_ms),
         dict(name="deform_conv2d_bwd", source=src_d,
              replaces="s2anet_tpu/ops/pallas/deform_kernel.py:263",
              launches=train_launches["s2a_deform_conv2d_bwd"], path="train", **deform_bwd),

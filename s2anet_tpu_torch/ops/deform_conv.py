@@ -27,7 +27,7 @@ from .._ext import I, P, Kernel
 DEFORM_FWD = Kernel("deform_conv", "s2a_deform_conv2d_fwd",
                     [P, P, P, P, I, I, I, I, I, I, P])
 DEFORM_BWD = Kernel("deform_conv", "s2a_deform_conv2d_bwd",
-                    [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
+                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P])
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -164,7 +164,7 @@ def deform_conv2d_cuda(x: torch.Tensor, offsets: torch.Tensor,
     cout = weight.shape[-1]
     x = _aligned(x)
     weight = _aligned(weight.to(x.dtype))
-    offsets = offsets.float().contiguous()
+    offsets = _aligned(offsets.float())
     out = torch.empty(b, h, w, cout, dtype=x.dtype, device=x.device)
     DEFORM_FWD(x.data_ptr(), offsets.data_ptr(), weight.data_ptr(),
                out.data_ptr(), b, h, w, c, cout, _DTYPE_CODE[x.dtype],
@@ -172,14 +172,31 @@ def deform_conv2d_cuda(x: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
-def dw_chunks(cells: int, c: int, cout: int, dtype: torch.dtype) -> int:
-    """Cell chunks of the weight-gradient kernel: enough blocks to fill the
-    card (about 4 per SM of an H100's 132) with one atomic add per element
-    of dW per block; each chunk holds whole 64-cell (bf16) or 32-cell (f32)
-    steps."""
-    step = 64 if dtype == torch.bfloat16 else 32
-    others = 9 * -(-c // 64) * -(-cout // 256)
-    return max(1, min(-(-528 // others), -(-cells // step)))
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def dw_plan(cells: int, c: int, cout: int, dtype: torch.dtype) -> tuple[int, int]:
+    """``(chunks, cells per chunk)`` of the weight-gradient kernel.
+
+    bfloat16: a block owns one tap, 128 input channels, 256 output channels
+    and one chunk, and writes its own slice of a ``[chunks, 9, C, Cout]``
+    workspace, so the chunks are as many as fill one wave of the SMs; each
+    chunk holds whole 64-cell steps. float32: about 4 blocks per SM of
+    64 x 256 channels, each adding its tile into dW once; 32-cell steps.
+    The last chunk may be short; every chunk holds at least one cell.
+    """
+    if dtype == torch.bfloat16:
+        step = 64
+        tiles = 9 * -(-c // 128) * -(-cout // 256)
+        want = SMS // tiles
+    else:
+        step = 32
+        tiles = 9 * -(-c // 64) * -(-cout // 256)
+        want = -(-4 * SMS // tiles)
+    want = max(1, min(want, -(-cells // step)))
+    per = -(-cells // want)
+    chunk = -(-per // step) * step
+    return -(-cells // chunk), chunk
 
 
 def deform_conv2d_bwd_cuda(x: torch.Tensor, offsets: torch.Tensor,
@@ -196,15 +213,20 @@ def deform_conv2d_bwd_cuda(x: torch.Tensor, offsets: torch.Tensor,
     x = _aligned(x)
     wt = _aligned(weight.to(x.dtype))
     grad = _aligned(grad.to(x.dtype))
-    offsets = offsets.float().contiguous()
-    dx32 = torch.zeros(b, h, w, c, dtype=torch.float32, device=x.device)
-    dx = dx32 if x.dtype == torch.float32 else torch.empty_like(x)
-    dw = torch.zeros(3, 3, c, cout, dtype=torch.float32, device=x.device)
-    chunks = dw_chunks(b * h * w, c, cout, x.dtype)
+    offsets = _aligned(offsets.float())
+    chunks, chunk = dw_plan(b * h * w, c, cout, x.dtype)
+    dev = x.device
+    f32 = x.dtype == torch.float32
+    dw = torch.empty(3, 3, c, cout, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    # bf16: float32 sums of dx, and each chunk's dW
+    dx32 = dx if f32 else torch.empty(b, h, w, c, dtype=torch.float32, device=dev)
+    ws = None if f32 else torch.empty(chunks, 9, c, cout, dtype=torch.float32, device=dev)
     DEFORM_BWD(x.data_ptr(), offsets.data_ptr(), wt.data_ptr(), grad.data_ptr(),
-               dx32.data_ptr(), dx.data_ptr(), dw.data_ptr(), b, h, w, c, cout,
-               chunks, _DTYPE_CODE[x.dtype],
-               torch.cuda.current_stream(x.device).cuda_stream)
+               dx32.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+               None if ws is None else ws.data_ptr(), b, h, w, c, cout,
+               chunks, chunk, _DTYPE_CODE[x.dtype],
+               torch.cuda.current_stream(dev).cuda_stream)
     return dx, dw.to(weight.dtype)
 
 

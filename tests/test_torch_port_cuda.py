@@ -43,6 +43,13 @@ def gen(dev):
     ((2, 1, 1, 16, 16), 3.0, torch.float32, 1e-4),
     ((2, 16, 48, 256, 256), 1.5, torch.bfloat16, 2e-2),
     ((1, 19, 41, 40, 24), 6.0, torch.bfloat16, 2e-2),
+    # bf16 tile edges: 779 cells (not a multiple of 128), C and Cout past
+    # one 256 block, 1x1 maps, the P7 shape, offsets hundreds of px outside
+    ((1, 19, 41, 256, 256), 3.0, torch.bfloat16, 2e-2),
+    ((1, 19, 41, 264, 264), 3.0, torch.bfloat16, 2e-2),
+    ((2, 1, 1, 256, 256), 3.0, torch.bfloat16, 2e-2),
+    ((8, 8, 8, 256, 256), 1.5, torch.bfloat16, 2e-2),
+    ((2, 16, 48, 256, 256), 500.0, torch.bfloat16, 2e-2),
 ])
 def test_deform_kernel_matches_plain(dev, gen, shape, scale, dtype, tol):
     b, h, w, c, co = shape
@@ -119,6 +126,11 @@ def test_small_predictor_kernel_path(dev):
     ((2, 1, 1, 16, 16), 3.0, torch.float32, 1e-3),
     ((2, 16, 48, 256, 256), 1.5, torch.bfloat16, 2e-2),
     ((1, 19, 41, 40, 24), 6.0, torch.bfloat16, 2e-2),
+    ((1, 19, 41, 256, 256), 3.0, torch.bfloat16, 2e-2),
+    ((1, 19, 41, 264, 264), 3.0, torch.bfloat16, 2e-2),
+    ((2, 1, 1, 256, 256), 3.0, torch.bfloat16, 2e-2),
+    ((8, 8, 8, 256, 256), 1.5, torch.bfloat16, 2e-2),
+    ((2, 16, 48, 256, 256), 500.0, torch.bfloat16, 2e-2),
 ])
 def test_deform_bwd_kernel_matches_plain(dev, gen, shape, scale, dtype, tol):
     """dx and dW against autograd of the plain forward: float32 at 1e-3,
@@ -140,6 +152,17 @@ def test_deform_bwd_kernel_matches_plain(dev, gen, shape, scale, dtype, tol):
         scale = 1.0 if dtype == torch.float32 else ref.float().abs().max().item()
         torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
                                    atol=tol * scale)
+
+
+def test_deform_bwd_bf16_weight_gradient_is_deterministic(dev, gen):
+    """dW adds its chunks in a fixed order: two runs agree bit for bit."""
+    x = torch.randn(2, 32, 32, 256, generator=gen, device=dev).bfloat16()
+    off = (torch.randn(2, 32, 32, 9, 2, generator=gen, device=dev) * 1.5).bfloat16()
+    wt = (torch.randn(3, 3, 256, 256, generator=gen, device=dev) * 0.05).bfloat16()
+    g = torch.randn(2, 32, 32, 256, generator=gen, device=dev).bfloat16()
+    dw = [dc.deform_conv2d_bwd_cuda(x, off, wt, g)[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(dw[0], dw[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

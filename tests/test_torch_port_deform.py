@@ -96,3 +96,25 @@ def test_cuda_wrapper_rejects_cpu_tensors(rng):
     x, off, wgt = (torch.from_numpy(a) for a in _case(rng, 1, 4, 4, 4, 4))
     with pytest.raises(ValueError):
         deform_conv.deform_conv2d_cuda(x, off, wgt)
+
+
+@pytest.mark.parametrize("cells,c,cout,dtype", [
+    (8 * 128 * 128, 256, 256, torch.bfloat16),  # P3 at batch 8
+    (8 * 8 * 8, 256, 256, torch.bfloat16),      # P7
+    (2, 256, 256, torch.bfloat16),              # 1x1 maps
+    (779, 264, 264, torch.bfloat16),
+    (779, 40, 24, torch.bfloat16),
+    (8 * 128 * 128, 256, 256, torch.float32),
+    (779, 40, 24, torch.float32),
+])
+def test_dw_plan_covers_every_cell_in_whole_steps(cells, c, cout, dtype):
+    """The weight-gradient plan: whole 64-cell (bf16) or 32-cell (f32)
+    steps, no empty chunk, and for bf16 no more blocks than one wave of the
+    H100's 132 SMs where the tiles allow."""
+    chunks, chunk = deform_conv.dw_plan(cells, c, cout, dtype)
+    step = 64 if dtype == torch.bfloat16 else 32
+    assert chunk % step == 0 and chunks >= 1
+    assert (chunks - 1) * chunk < cells <= chunks * chunk
+    if dtype == torch.bfloat16:
+        tiles = 9 * -(-c // 128) * -(-cout // 256)
+        assert chunks * tiles <= max(deform_conv.SMS, tiles)
