@@ -33,18 +33,28 @@ last line:
                and bf16 within 2e-2 of the largest reference value; bf16 dW
                equal bit for bit over repeated runs; P3-P7 times, and per
                level the dW, dx, finishing and memset launches (profiler)
-  8. kernels 5, 6  BN moment and pair sums vs their plain versions at the
-               R-50 stem and a layer-4 shape, f32 and bf16, within 1e-5 of
-               the sum of magnitudes; times over the 53 BatchNorm inputs of
-               one R-50 1024^2 batch-8 step, each kernel in turns with its
-               library call (torch.batch_norm_stats,
-               torch.batch_norm_backward_reduce), and the whole BN forward
-               and backward against cuDNN's F.batch_norm
+  8. kernels 5, 6, BN apply, BN dx  the training BatchNorm's kernels vs
+               their plain versions at the R-50 stem, a layer-4, an odd
+               (C 24) and a 1x1 shape, f32 and bf16: the moment and pair
+               sums within 1e-5 of the sums of magnitudes; their finishing
+               outputs (mean, var, rstd, mul, running statistics, dgamma,
+               dbeta, dx coefficients) within 1e-6 of the plain finishing
+               on the same sums; apply and dx equal to their plain versions
+               bit for bit on the same per-channel vectors. Times over the
+               53 BatchNorm inputs of one R-50 1024^2 batch-8 step, each
+               kernel in turns with its library call
+               (torch.batch_norm_stats, torch.batch_norm_backward_reduce,
+               torch.batch_norm_elemt, torch.batch_norm_backward_elemt),
+               and the whole BN forward and backward against cuDNN's
+               F.batch_norm: per input, and as a step runs the layers (53
+               forwards, then one backward over all of them) with the
+               kernel time and the host's enqueue time of the latter
   9. training  python -m s2anet_tpu_torch.train at R-50 1024^2 batch 8 bf16,
                clamp 6.0, 3 warm-up and 5 timed steps: finite losses,
                ms/step, img/s, peak memory, launches per step of every
-               kernel (AlignConv fwd/bwd 5, moments/pair 53, IoU > 0), and a
-               profiler table of one step with the device's idle share
+               kernel (AlignConv fwd/bwd 5, BN moments/pair/apply/dx 53,
+               IoU > 0), and a profiler table of one step with the device's
+               idle share
  10. step vs plain  one R-18 256^2 batch-2 f32 train step (TF32 off, cuDNN
                deterministic), same weights and batch: the kernel path's
                loss items within 1e-4 (relative) of the plain path's; on
@@ -130,6 +140,19 @@ def cuda_ms(torch, fn, iters: int, repeats: int = REPEATS):
     fn()
     torch.cuda.synchronize()
     return median_spread([loop_ms(torch, fn, iters) for _ in range(repeats)])
+
+
+def host_ms(torch, fn, repeats: int = REPEATS) -> float:
+    """Median host milliseconds to enqueue ``fn`` on an idle device (the
+    clock stops before the device finishes)."""
+    ts = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return median_spread(ts)[0]
 
 
 def median_spread(ts):
@@ -369,94 +392,198 @@ def phase_deform_bwd(torch, dev, gen, levels):
                 library_ms=None)
 
 
+def rel_to_max(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
 def phase_moments(torch, dev, gen):
-    """Kernels 5 and 6 against their plain versions; times over the BN
-    inputs of one R-50 step against the library calls."""
+    """Kernels 5 and 6 with their finishing steps, and the BN apply and dx
+    kernels, against their plain versions; times over the BN inputs of one
+    R-50 step against the library calls."""
     import torch.nn.functional as F
 
     from s2anet_tpu_torch.models.bn import BatchNorm2d
     from s2anet_tpu_torch.ops import moments as mo
 
-    say("== 8. kernels 5, 6: BN moment and pair sums vs plain")
-    worst = {"moments": 0.0, "pair": 0.0}
-    for shape in ((8, 512, 512, 64), (8, 32, 32, 2048)):
+    say("== 8. kernels 5, 6 (BN sums and finishing) and the BN apply and dx kernels vs plain")
+    eps, keep = 1e-5, 0.9
+    worst = {"moments": 0.0, "pair": 0.0, "apply": 0.0, "dx": 0.0}
+    for shape in ((8, 512, 512, 64), (8, 32, 32, 2048), (3, 5, 7, 24), (2, 1, 1, 256)):
         for dtype in (torch.float32, torch.bfloat16):
+            c = shape[-1]
+            n = int(np.prod(shape[:-1]))
             x = (torch.rand(shape, generator=gen, device=dev) * 2 + 0.3).to(dtype)
             g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            weight = torch.rand(c, generator=gen, device=dev) + 0.5
+            bias = torch.randn(c, generator=gen, device=dev) * 0.3
+            rm = torch.randn(c, generator=gen, device=dev) * 0.2
+            rv = torch.rand(c, generator=gen, device=dev) + 0.5
+            rm_p, rv_p = rm.clone(), rv.clone()
+            tracked, tracked_p = (torch.tensor(0, device=dev) for _ in range(2))
             got = mo.channel_moments_cuda(x) + mo.grad_channel_sums_cuda(g, x)
+            stats = mo.bn_stats_cuda(x, weight, rm, rv, tracked, eps, keep)
+            mean, _, rstd, mul = stats
+            grad = mo.bn_grad_cuda(g, x, mean, rstd)
+            y = mo.bn_apply_cuda(x, mean, mul, bias)
+            dx = mo.bn_dx_cuda(g, x, mean, mul, grad[2], grad[3])
             torch.cuda.synchronize()
             ref = mo.channel_moments_plain(x) + mo.grad_channel_sums_plain(g, x)
-            xf, gf = x.float().reshape(-1, shape[-1]), g.float().reshape(-1, shape[-1])
+            xf, gf = x.float().reshape(-1, c), g.float().reshape(-1, c)
             mags = (xf.abs().sum(0), (xf * xf).sum(0), gf.abs().sum(0),
                     (gf * xf).abs().sum(0))
-            rel = [((a - r).abs() / m).max().item() for a, r, m in zip(got, ref, mags)]
+            rel = max(((a - r).abs() / m).max().item() for a, r, m in zip(got, ref, mags))
+            # the finishing steps against the plain ones on the kernel's sums
+            # (deterministic: the same chunks in the same order)
+            ref_stats = mo.stats_from_sums(got[0], got[1], n, weight, rm_p, rv_p, tracked_p,
+                                           eps, keep)
+            ref_grad = mo.grad_from_sums(got[2], got[3], n, mean, rstd)
+            outs_s, refs_s = stats + (rm, rv), ref_stats + (rm_p, rv_p)
+            fin = max(rel_to_max(a, b) for a, b in zip(outs_s + grad, refs_s + ref_grad))
             worst["moments"] = max(worst["moments"], *(
-                (a - r).abs().max().item() for a, r in zip(got[:2], ref[:2])))
+                (a - r).abs().max().item() for a, r in zip(got[:2] + outs_s, ref[:2] + refs_s)))
             worst["pair"] = max(worst["pair"], *(
-                (a - r).abs().max().item() for a, r in zip(got[2:], ref[2:])))
-            check(max(rel) <= 1e-5,
+                (a - r).abs().max().item() for a, r in zip(got[2:] + grad, ref[2:] + ref_grad)))
+            y_ref = mo.bn_apply_plain(x, mean, mul, bias)
+            dx_ref = mo.bn_dx_plain(g, x, mean, mul, grad[2], grad[3])
+            worst["apply"] = max(worst["apply"], (y.float() - y_ref.float()).abs().max().item())
+            worst["dx"] = max(worst["dx"], (dx.float() - dx_ref.float()).abs().max().item())
+            same_y, same_dx = torch.equal(y, y_ref), torch.equal(dx, dx_ref)
+            check(rel <= 1e-5 and fin <= 1e-6 and int(tracked) == int(tracked_p) == 1
+                  and same_y and same_dx,
                   f"{list(shape)} {str(dtype)[6:]}: sum, sum x^2, sum g, sum g*x within "
-                  f"{max(rel):.3g} of the sums of magnitudes (bound 1e-5)")
+                  f"{rel:.3g} of the sums of magnitudes (bound 1e-5); mean, var, rstd, mul, "
+                  f"running mean and var, dgamma, dbeta, a, b within {fin:.3g} of the plain "
+                  f"finishing on the same sums (bound 1e-6), batch count {int(tracked)}; "
+                  f"apply and dx equal to plain bit for bit: {same_y}, {same_dx}")
+    del x, g, y, dx, y_ref, dx_ref, xf, gf
     shapes = bn_input_shapes(torch, "resnet50", BATCH, SIZE)
+    elems = sum(n * c * h * w for n, c, h, w in shapes)
     check(len(shapes) == 53, f"R-50 at {SIZE}^2 batch {BATCH}: {len(shapes)} BatchNorm inputs, "
-          f"{sum(n * c * h * w for n, c, h, w in shapes) / 1e9:.3f} G elements")
-    # every BN input of the step at once; kernel and library call timed in
-    # turns over whole sweeps of the 53 inputs, medians of REPEATS sweeps
+          f"{elems / 1e9:.3f} G elements")
+    # every BN input of the step at once; each kernel and its library call
+    # timed in turns over whole sweeps of the 53 inputs, medians of REPEATS
+    # sweeps. The library calls only time the same function: the port
+    # never calls them.
     data = []
-    m_bytes = p_bytes = m_ops = 0
+    nbytes = {"moments": 0, "pair": 0, "apply": 0, "dx": 0}
     for n, c, h, w in shapes:
         x = (torch.randn(n, h, w, c, generator=gen, device=dev) + 0.3).bfloat16()
         g = torch.randn(n, h, w, c, generator=gen, device=dev).bfloat16()
         xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels-last NCHW
-        mean, invstd = torch.batch_norm_stats(xc, 1e-5)
-        data.append((x, g, xc, gc, mean, invstd, torch.ones(c, device=dev)))
-        rows = n * h * w
-        m_bytes += rows * c * 2 + 2 * c * 4
-        p_bytes += 2 * rows * c * 2 + 2 * c * 4
-        m_ops += 3 * rows * c
+        ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+        run = (torch.zeros(c, device=dev), torch.ones(c, device=dev),
+               torch.tensor(0, device=dev))
+        mean, _, rstd, mul = mo.bn_stats_cuda(x, ones, *run, eps, keep)
+        _, _, a, b = mo.bn_grad_cuda(g, x, mean, rstd)
+        lm, linv = torch.batch_norm_stats(xc, eps)
+        sdy, sdyx, _, _ = torch.batch_norm_backward_reduce(gc, xc, lm, linv, ones,
+                                                           True, True, True)
+        count = torch.tensor([n * h * w], dtype=torch.int32, device=dev)
+        data.append(dict(x=x, g=g, xc=xc, gc=gc, ones=ones, zeros=zeros, run=run,
+                         mean=mean, rstd=rstd, mul=mul, a=a, b=b, lm=lm, linv=linv,
+                         sdy=sdy, sdyx=sdyx, count=count))
+        e = n * h * w * c
+        # each input read once and each output written once; float32 [C]
+        # vectors: stats reads gamma and the running pair, writes 6 + 2;
+        # pair reads mean and rstd, writes 5; apply reads 3; dx reads 4
+        nbytes["moments"] += 2 * e + 11 * 4 * c
+        nbytes["pair"] += 4 * e + 7 * 4 * c
+        nbytes["apply"] += 4 * e + 3 * 4 * c
+        nbytes["dx"] += 6 * e + 4 * 4 * c
+    ops = {"moments": 3 * elems, "pair": 3 * elems, "apply": 3 * elems, "dx": 5 * elems}
 
     def sweep(fn):
-        return lambda: [fn(*d) for d in data]
+        return lambda: [fn(d) for d in data]
 
-    (mk, mk_s), (ml, ml_s) = paired_ms(
-        torch, sweep(lambda x, g, xc, gc, m, v, w: mo.channel_moments_cuda(x)),
-        sweep(lambda x, g, xc, gc, m, v, w: torch.batch_norm_stats(xc, 1e-5)), 3)
-    (pk, pk_s), (pl, pl_s) = paired_ms(
-        torch, sweep(lambda x, g, xc, gc, m, v, w: mo.grad_channel_sums_cuda(g, x)),
-        sweep(lambda x, g, xc, gc, m, v, w: torch.batch_norm_backward_reduce(
-            gc, xc, m, v, w, True, True, True)), 3)
-    mp, _ = cuda_ms(torch, sweep(lambda x, g, *_: mo.channel_moments_plain(x)), 1)
-    pp, _ = cuda_ms(torch, sweep(lambda x, g, *_: mo.grad_channel_sums_plain(g, x)), 1)
+    pairs = {
+        "moments": (lambda d: mo.bn_stats_cuda(d["x"], d["ones"], *d["run"], eps, keep),
+                    lambda d: torch.batch_norm_stats(d["xc"], eps),
+                    lambda d: mo.bn_stats_plain(d["x"], d["ones"], *d["run"], eps, keep),
+                    "torch.batch_norm_stats"),
+        "pair": (lambda d: mo.bn_grad_cuda(d["g"], d["x"], d["mean"], d["rstd"]),
+                 lambda d: torch.batch_norm_backward_reduce(
+                     d["gc"], d["xc"], d["lm"], d["linv"], d["ones"], True, True, True),
+                 lambda d: mo.bn_grad_plain(d["g"], d["x"], d["mean"], d["rstd"]),
+                 "torch.batch_norm_backward_reduce"),
+        "apply": (lambda d: mo.bn_apply_cuda(d["x"], d["mean"], d["mul"], d["zeros"]),
+                  lambda d: torch.batch_norm_elemt(d["xc"], d["ones"], d["zeros"], d["lm"],
+                                                   d["linv"], eps),
+                  lambda d: mo.bn_apply_plain(d["x"], d["mean"], d["mul"], d["zeros"]),
+                  "torch.batch_norm_elemt"),
+        "dx": (lambda d: mo.bn_dx_cuda(d["g"], d["x"], d["mean"], d["mul"], d["a"], d["b"]),
+               lambda d: torch.batch_norm_backward_elemt(
+                   d["gc"], d["xc"], d["lm"], d["linv"], d["ones"], d["sdy"], d["sdyx"],
+                   d["count"]),
+               lambda d: mo.bn_dx_plain(d["g"], d["x"], d["mean"], d["mul"], d["a"], d["b"]),
+               "torch.batch_norm_backward_elemt"),
+    }
+    label = {"moments": "stats (sums + finishing) kernel", "pair": "pair (sums + finishing) kernel",
+             "apply": "apply kernel", "dx": "dx kernel"}
+    rows = {}
+    for key, (kern, lib, plain, lib_name) in pairs.items():
+        (tk, sk), (tl, sl) = paired_ms(torch, sweep(kern), sweep(lib), 3)
+        tp, _ = cuda_ms(torch, sweep(plain), 1)
+        bd, bby = bound(nbytes[key], ops[key], F32_FLOP_S)
+        rows[key] = dict(max_abs_err=worst[key], ms=tk, plain_ms=tp, bound_ms=bd,
+                         bound_by=bby, library_ms=tl)
+        say(f"   {label[key]} over the 53 BN inputs of one step (bf16): {tk:.3f} ms "
+            f"(spread {sk:.1%}), {lib_name} {tl:.3f} ms ({sl:.1%}) in turns, median of "
+            f"{REPEATS} sweeps; plain {tp:.3f} ms; bound {bd:.3f} ms ({bby}, "
+            f"{nbytes[key] / 1e9:.2f} GB, {nbytes[key] / elems:.2f} B/elem at "
+            f"{HBM_BYTES_S / 1e12:.2f} TB/s): {bd / tk:.1%} of the bound")
+    # the whole layer, forward and backward, in turns with cuDNN's
+    # F.batch_norm: (1) per input, with a wait after each input's loop (the
+    # PR 2-3 measure; on the small layers it times the host's dispatch and
+    # one autograd engine call per layer); (2) as a step runs its layers:
+    # the 53 forwards, then one backward over all of them, the gradients
+    # returned by autograd.grad (not added into .grad)
+    layers = []
+    for d in data:
+        c = d["x"].shape[-1]
+        layers.append((BatchNorm2d(c).to(dev).train(), d["xc"].detach().requires_grad_(True),
+                       torch.zeros(c, device=dev), torch.ones(c, device=dev),
+                       torch.ones(c, device=dev, requires_grad=True),
+                       torch.zeros(c, device=dev, requires_grad=True), d["gc"]))
+    del data
     bk = bl = 0.0
-    for x, g, xc, gc, *_ in data:
-        c = x.shape[-1]
-        bn = BatchNorm2d(c).to(dev).train()
-        xr = xc.detach().requires_grad_(True)
-        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
-        bias = torch.zeros(c, device=dev, requires_grad=True)
-        wr = torch.ones(c, device=dev, requires_grad=True)
+    for bn, xr, rm, rv, wr, br, gc in layers:
         (t_bk, _), (t_bl, _) = paired_ms(
             torch, lambda: bn(xr).backward(gc), lambda: F.batch_norm(
-                xr, rm, rv, wr, bias, training=True, momentum=0.1, eps=1e-5).backward(gc), 2)
+                xr, rm, rv, wr, br, training=True, momentum=0.1, eps=1e-5).backward(gc), 2)
         bk += t_bk
         bl += t_bl
-    del data
-    mb, mby = bound(m_bytes, m_ops, F32_FLOP_S)
-    pb, pby = bound(p_bytes, m_ops, F32_FLOP_S)
-    say(f"   over the 53 BN inputs of one step (bf16), kernel and library call in turns, "
-        f"median of {REPEATS} sweeps (spread): moments kernel {mk:.3f} ms ({mk_s:.1%}), "
-        f"torch.batch_norm_stats {ml:.3f} ms ({ml_s:.1%}), plain {mp:.3f} ms, bound "
-        f"{mb:.3f} ms ({mby}, {m_bytes / 1e9:.2f} GB)")
-    say(f"   pair kernel {pk:.3f} ms ({pk_s:.1%}), torch.batch_norm_backward_reduce "
-        f"{pl:.3f} ms ({pl_s:.1%}): the kernel is {'slower' if pk > pl else 'faster'} by "
-        f"{abs(pk / pl - 1):.1%}; plain {pp:.3f} ms, bound {pb:.3f} ms "
-        f"({pby}, {p_bytes / 1e9:.2f} GB)")
-    say(f"   whole BatchNorm forward + backward: port module {bk:.3f} ms, "
-        f"cuDNN F.batch_norm {bl:.3f} ms")
-    return (dict(max_abs_err=worst["moments"], ms=mk, plain_ms=mp, bound_ms=mb,
-                 bound_by=mby, library_ms=ml),
-            dict(max_abs_err=worst["pair"], ms=pk, plain_ms=pp, bound_ms=pb,
-                 bound_by=pby, library_ms=pl))
+
+    grads = [gc for *_, gc in layers]
+    port_inputs = [t for bn, xr, *_ in layers for t in (xr, bn.weight, bn.bias)]
+    cudnn_inputs = [t for _, xr, _, _, wr, br, _ in layers for t in (xr, wr, br)]
+
+    def port_sweep():
+        torch.autograd.grad([bn(xr) for bn, xr, *_ in layers], port_inputs, grads)
+
+    def cudnn_sweep():
+        torch.autograd.grad([F.batch_norm(xr, rm, rv, wr, br, training=True, momentum=0.1,
+                                          eps=1e-5) for _, xr, rm, rv, wr, br, _ in layers],
+                            cudnn_inputs, grads)
+
+    (sk, sk_s), (sl, sl_s) = paired_ms(torch, port_sweep, cudnn_sweep, 2)
+    # what bounds those sweeps: their kernel time (profiler) and the host's
+    # time to enqueue them
+    dk = sum(kernel_split(torch, port_sweep, 2).values())
+    dl = sum(kernel_split(torch, cudnn_sweep, 2).values())
+    hk, hl = host_ms(torch, port_sweep), host_ms(torch, cudnn_sweep)
+    del layers, grads, port_inputs, cudnn_inputs
+    whole_bound = sum(nbytes.values()) / HBM_BYTES_S * 1e3
+    say(f"   whole BatchNorm forward + backward over the 53 inputs, bound of the four kernels "
+        f"{whole_bound:.3f} ms:")
+    say(f"     as a step runs them, 53 forwards then one backward (median of {REPEATS}): port "
+        f"module {sk:.3f} ms ({sk_s:.1%}), cuDNN F.batch_norm {sl:.3f} ms ({sl_s:.1%}): the "
+        f"port is {'faster' if sk < sl else 'slower'} by {abs(sk / sl - 1):.1%}; their kernels "
+        f"(profiler): port {dk:.3f} ms, cuDNN {dl:.3f} ms; the host's time to enqueue them: "
+        f"port {hk:.3f} ms ({1e3 * hk / len(shapes):.0f} us a layer), cuDNN {hl:.3f} ms")
+    say(f"     per input with a wait after each: port module {bk:.3f} ms, cuDNN F.batch_norm "
+        f"{bl:.3f} ms: the port is {'faster' if bk < bl else 'slower'} by {abs(bk / bl - 1):.1%}")
+    return rows
 
 
 def phase_train(torch, dev, card, out_dir):
@@ -491,6 +618,7 @@ def phase_train(torch, dev, card, out_dir):
         v == v for v in summary["losses"]), f"finite losses {summary['losses']}")
     check(per["s2a_deform_conv2d_fwd"] == 5 and per["s2a_deform_conv2d_bwd"] == 5
           and per["s2a_channel_moments"] == 53 and per["s2a_grad_channel_sums"] == 53
+          and per["s2a_bn_apply"] == 53 and per["s2a_bn_dx"] == 53
           and per["s2a_box_iou_rotated"] > 0 and per["s2a_nms_rotated_mask"] == 0,
           f"launches per step {per}")
 
@@ -512,7 +640,10 @@ def phase_train(torch, dev, card, out_dir):
         name = e.key
         grp = ("AlignConv forward kernel" if "deform_fwd" in name else
                "AlignConv backward kernel" if "deform_bwd" in name
-               else "BN moment kernels" if "partial_sums" in name or "finish_sums" in name
+               else "BN sums and finishing kernels (moments, pair)" if "partial_sums" in name
+               or "finish_sums" in name
+               else "BN apply kernel" if "bn_apply" in name
+               else "BN dx kernel" if "bn_dx" in name
                else "rotated IoU kernel" if "box_iou_rotated" in name
                else "optimizer and EMA (foreach)" if "multi_tensor" in name
                else "convolutions (cuDNN)" if any(
@@ -561,9 +692,11 @@ def phase_step_vs_plain(torch, dev):
     args = ["--backbone", "resnet18", "--img-size", "256", "--batch-size", "2",
             "--dtype", "float32", "--synthetic", "1", "--seed", str(SEED)]
     plain_bwd = (mock.patch.object(dc, "deform_conv2d_bwd_cuda", dc.deform_conv2d_bwd_plain),
-                 mock.patch.object(bn_mod, "grad_channel_sums", mo.grad_channel_sums_plain))
+                 mock.patch.object(bn_mod, "bn_grad", mo.bn_grad_plain),
+                 mock.patch.object(bn_mod, "bn_dx", mo.bn_dx_plain))
     plain_fwd = (mock.patch.object(head_mod, "deform_conv2d", dc.deform_conv2d_plain),
-                 mock.patch.object(bn_mod, "channel_moments", mo.channel_moments_plain),
+                 mock.patch.object(bn_mod, "bn_stats", mo.bn_stats_plain),
+                 mock.patch.object(bn_mod, "bn_apply", mo.bn_apply_plain),
                  mock.patch.object(as_mod, "box_iou_rotated", iou.box_iou_rotated_plain))
 
     def forward(patches, perturb=0.0):
@@ -620,7 +753,8 @@ def phase_step_vs_plain(torch, dev):
     bwd = rel_max(g_kk, g_kp)
     worst_name = max(bwd, key=bwd.get)
     check(max(bwd.values()) <= 1e-3 and kernel_launches["s2a_deform_conv2d_bwd"] == 5
-          and kernel_launches["s2a_grad_channel_sums"] == 20,
+          and kernel_launches["s2a_grad_channel_sums"] == 20
+          and kernel_launches["s2a_bn_dx"] == 20 and kernel_launches["s2a_bn_apply"] == 20,
           f"same forward, backward kernels vs plain backward: every one of {len(bwd)} "
           f"gradients within {max(bwd.values()):.3g} of its largest value (worst "
           f"{worst_name}; bound 1e-3); launches {kernel_launches}")
@@ -1009,7 +1143,7 @@ def main(argv=None) -> int:
 
     deform_bwd = phase_deform_bwd(torch, dev, gen, levels)
     del levels
-    moments_row, pair_row = phase_moments(torch, dev, gen)
+    bn_rows = phase_moments(torch, dev, gen)
     train_launches, train_summary, gt0 = phase_train(torch, dev, card, out_dir)
 
     # the IoU kernel at the assignment's shape: the R-50 1024^2 anchors
@@ -1061,10 +1195,14 @@ def main(argv=None) -> int:
              bound_ms=sweep_bound[0], bound_by=sweep_bound[1], library_ms=None),
         dict(name="channel_moments", source=src_m,
              replaces="s2anet_tpu/ops/pallas/moments.py:43",
-             launches=train_launches["s2a_channel_moments"], path="train", **moments_row),
+             launches=train_launches["s2a_channel_moments"], path="train", **bn_rows["moments"]),
         dict(name="grad_channel_sums", source=src_m,
              replaces="s2anet_tpu/ops/pallas/moments.py:60",
-             launches=train_launches["s2a_grad_channel_sums"], path="train", **pair_row),
+             launches=train_launches["s2a_grad_channel_sums"], path="train", **bn_rows["pair"]),
+        dict(name="bn_apply", source=src_m, replaces="s2anet_tpu/models/bn.py:108",
+             launches=train_launches["s2a_bn_apply"], path="train", **bn_rows["apply"]),
+        dict(name="bn_dx", source=src_m, replaces="s2anet_tpu/models/bn.py:140",
+             launches=train_launches["s2a_bn_dx"], path="train", **bn_rows["dx"]),
     ]
     say(json.dumps({"kernels": [{"name": r.pop("name"), "route": "cuda", **r}
                                 for r in rows]}))

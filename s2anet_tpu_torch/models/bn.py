@@ -1,11 +1,13 @@
-"""Training BatchNorm on the moment kernels.
+"""Training BatchNorm on the fused BN kernels.
 
-Counterpart of ``s2anet_tpu/models/bn.py::PallasBatchNorm``. In training the
-batch statistics come from :func:`..ops.moments.channel_moments` (one read
-of the activation) and the backward from
-:func:`..ops.moments.grad_channel_sums` (one read of the gradient and the
-activation) plus the closed-form dx. In eval it is the plain affine with the
-running statistics.
+Counterpart of ``s2anet_tpu/models/bn.py::PallasBatchNorm``. In training
+one layer is four passes of :mod:`..ops.moments`, each a CUDA kernel on
+the card: forward :func:`bn_stats` (one read of the activation; the
+finishing step also gives the normalise coefficients and updates the
+running statistics) and :func:`bn_apply` (the normalise: one read, one
+write); backward :func:`bn_grad` (one read of the gradient and the
+activation; dgamma, dbeta and the dx coefficients) and :func:`bn_dx`. In
+eval it is the plain affine with the running statistics.
 
 It mirrors flax's ``nn.BatchNorm``, not torch's:
 
@@ -18,8 +20,8 @@ It mirrors flax's ``nn.BatchNorm``, not torch's:
 The module keeps ``nn.BatchNorm2d``'s keys and type (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``), so weight
 conversion and serving-time folding treat it as one. The activation is
-``[N, C, H, W]``; training reads it as ``[N, H, W, C]``, so it must be
-channels-last in memory on the card.
+``[N, C, H, W]``; training reads it and its gradient as ``[N, H, W, C]``,
+so both must be channels-last in memory on the card.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.moments import channel_moments, grad_channel_sums
+from ..ops.moments import bn_apply, bn_dx, bn_grad, bn_stats
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -35,34 +37,29 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class _BatchNormTrain(torch.autograd.Function):
-    """``(y, batch mean, biased batch var)``; mean and var carry no
-    gradient (they feed only the running averages)."""
+    """``y`` of the BN layer ``bn`` in training; its batch statistics update
+    the layer's running statistics. The statistics carry no gradient of
+    their own: the backward is the closed form, which accounts for them."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, bn):
         xl = _nhwc(x)
-        n = xl.numel() // xl.shape[-1]
-        s, q = channel_moments(xl)
-        mean = s / n
-        var = torch.clamp_min(q / n - mean * mean, 0.0)
-        rstd = torch.rsqrt(var + eps)
-        y = ((xl.float() - mean) * (weight * rstd) + bias).to(x.dtype)
-        ctx.save_for_backward(x, weight, mean, rstd)
-        ctx.mark_non_differentiable(mean, var)
-        return y.permute(0, 3, 1, 2), mean, var
+        mean, _, rstd, mul = bn_stats(xl, weight, bn.running_mean, bn.running_var,
+                                      bn.num_batches_tracked, bn.eps,
+                                      1.0 - bn.momentum)  # flax momentum
+        ctx.save_for_backward(x)
+        ctx.stats = mean, rstd, mul
+        return bn_apply(xl, mean, mul, bias).permute(0, 3, 1, 2)
 
     @staticmethod
-    def backward(ctx, gy, _gmean, _gvar):
-        x, weight, mean, rstd = ctx.saved_tensors
+    def backward(ctx, gy):
+        (x,) = ctx.saved_tensors
+        mean, rstd, mul = ctx.stats
         xl, gl = _nhwc(x), _nhwc(gy)
-        n = xl.numel() // xl.shape[-1]
-        sg, sgx = grad_channel_sums(gl, xl)
-        dbeta = sg
-        dgamma = (sgx - mean * sg) * rstd
         # dx = gamma*rstd * (g - mean(g) - xhat * mean(g*xhat))
-        xc = xl.float() - mean
-        dx = (weight * rstd) * (gl.float() - dbeta / n - xc * (rstd * dgamma / n))
-        return dx.to(x.dtype).permute(0, 3, 1, 2), dgamma, dbeta, None
+        dgamma, dbeta, a, b = bn_grad(gl, xl, mean, rstd)
+        dx = bn_dx(gl, xl, mean, mul, a, b)
+        return dx.permute(0, 3, 1, 2), dgamma, dbeta, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -74,10 +71,4 @@ class BatchNorm2d(nn.BatchNorm2d):
             mul = self.weight * torch.rsqrt(self.running_var + self.eps)
             y = (_nhwc(x).float() - self.running_mean) * mul + self.bias
             return y.to(x.dtype).permute(0, 3, 1, 2)
-        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
-        with torch.no_grad():
-            m = 1.0 - self.momentum  # flax momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-            self.num_batches_tracked.add_(1)
-        return y
+        return _BatchNormTrain.apply(x, self.weight, self.bias, self)

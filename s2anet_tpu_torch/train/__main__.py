@@ -33,7 +33,7 @@ from ..config import ModelConfig, TrainConfig
 from ..models.detector import S2ANet
 from ..ops.deform_conv import DEFORM_BWD, DEFORM_FWD
 from ..ops.iou_rotated import BOX_IOU
-from ..ops.moments import MOMENTS, PAIR
+from ..ops.moments import APPLY, DX, MOMENTS, PAIR
 from ..ops.nms_rotated import NMS_MASK, NMS_SWEEP
 from .optim import Optimizer
 from .schedule import build_lr_schedule
@@ -41,7 +41,7 @@ from .state import ModelEMA
 from .step import to_device, train_step
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-KERNELS = (DEFORM_FWD, DEFORM_BWD, BOX_IOU, NMS_MASK, NMS_SWEEP, MOMENTS, PAIR)
+KERNELS = (DEFORM_FWD, DEFORM_BWD, BOX_IOU, NMS_MASK, NMS_SWEEP, MOMENTS, PAIR, APPLY, DX)
 
 
 def synthetic_batches(n: int, batch: int, size: int, seed: int, max_gt: int = 64):

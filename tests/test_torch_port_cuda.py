@@ -10,6 +10,8 @@ They need an NVIDIA GPU and ``nvcc``; here they skip. On the card:
 card does not have.) Float32 comparisons turn TF32 off for matmuls and cuDNN.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -183,27 +185,89 @@ def test_moment_kernels_match_plain(dev, gen, shape, dtype):
         assert ((a - b).abs() <= 1e-5 * m).all()
 
 
+BN_SHAPES = [(8, 64, 64, 64), (2, 8, 8, 2048), (3, 5, 7, 24), (2, 1, 1, 256)]
+
+
+def _bn_case(gen, dev, shape, dtype):
+    c = shape[-1]
+    x = (torch.rand(shape, generator=gen, device=dev) * 2 + 0.3).to(dtype)
+    g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    weight = torch.rand(c, generator=gen, device=dev) + 0.5
+    bias = torch.randn(c, generator=gen, device=dev) * 0.3
+    running = (torch.randn(c, generator=gen, device=dev) * 0.2,
+               torch.rand(c, generator=gen, device=dev) + 0.5)
+    return x, g, weight, bias, running
+
+
+def _rel_to_max(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_finishing_matches_plain(dev, gen, shape, dtype):
+    """The finishing steps against the plain ones on the kernel's own sums
+    (the sums are deterministic: same chunks, same order), within 1e-6 of
+    each vector's largest value."""
+    x, g, weight, _, (rm, rv) = _bn_case(gen, dev, shape, dtype)
+    n = x.numel() // shape[-1]
+    rm_p, rv_p = rm.clone(), rv.clone()
+    tracked, tracked_p = (torch.tensor(3, device=dev) for _ in range(2))
+    n_m, n_p = mo.MOMENTS.launches, mo.PAIR.launches
+    got = mo.bn_stats_cuda(x, weight, rm, rv, tracked, 1e-5, 0.9)
+    want = mo.stats_from_sums(*mo.channel_moments_cuda(x), n, weight, rm_p, rv_p,
+                              tracked_p, 1e-5, 0.9)
+    got_g = mo.bn_grad_cuda(g, x, got[0], got[2])
+    want_g = mo.grad_from_sums(*mo.grad_channel_sums_cuda(g, x), n, got[0], got[2])
+    torch.cuda.synchronize()
+    assert (mo.MOMENTS.launches, mo.PAIR.launches) == (n_m + 2, n_p + 2)
+    assert int(tracked) == int(tracked_p) == 4
+    for a, b in zip(got + (rm, rv) + got_g, want + (rm_p, rv_p) + want_g):
+        assert a.dtype == torch.float32 and a.shape == (shape[-1],)
+        assert _rel_to_max(a, b) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_apply_and_dx_kernels_equal_plain(dev, gen, shape, dtype):
+    """Given the same per-channel vectors, the normalise and dx kernels give
+    the plain versions' bits."""
+    x, g, weight, bias, (rm, rv) = _bn_case(gen, dev, shape, dtype)
+    mean, _, rstd, mul = mo.bn_stats_cuda(x, weight, rm, rv, torch.tensor(0, device=dev),
+                                          1e-5, 0.9)
+    _, _, a, b = mo.bn_grad_cuda(g, x, mean, rstd)
+    n_a, n_d = mo.APPLY.launches, mo.DX.launches
+    y = mo.bn_apply(x, mean, mul, bias)
+    dx = mo.bn_dx(g, x, mean, mul, a, b)
+    torch.cuda.synchronize()
+    assert (mo.APPLY.launches, mo.DX.launches) == (n_a + 1, n_d + 1)
+    assert y.dtype == dx.dtype == dtype and y.is_contiguous() and dx.is_contiguous()
+    assert torch.equal(y, mo.bn_apply_plain(x, mean, mul, bias))
+    assert torch.equal(dx, mo.bn_dx_plain(g, x, mean, mul, a, b))
+
+
 def test_bn_train_runs_the_kernels(dev, gen):
     """The training BatchNorm on the card against the same module with the
-    plain reductions; gradients as tests/test_pallas_bn.py bounds them."""
+    plain versions; gradients as tests/test_pallas_bn.py bounds them."""
     from unittest import mock
 
     from s2anet_tpu_torch.models import bn as bn_mod
 
     x = torch.randn(4, 64, 16, 16, generator=gen, device=dev) + 0.5
     x = x.contiguous(memory_format=torch.channels_last)
+    kernels = (mo.MOMENTS, mo.APPLY, mo.PAIR, mo.DX)
     runs = []
     for plain in (False, True):
         bn = bn_mod.BatchNorm2d(64).to(dev).train()
         xx = x.clone().requires_grad_(True)
-        n_m, n_p = mo.MOMENTS.launches, mo.PAIR.launches
-        with mock.patch.object(bn_mod, "channel_moments",
-                               mo.channel_moments_plain if plain else mo.channel_moments), \
-                mock.patch.object(bn_mod, "grad_channel_sums",
-                                  mo.grad_channel_sums_plain if plain else mo.grad_channel_sums):
+        before = [k.launches for k in kernels]
+        with contextlib.ExitStack() as stack:
+            for name in ("bn_stats", "bn_apply", "bn_grad", "bn_dx"):
+                fn = getattr(mo, name + "_plain") if plain else getattr(mo, name)
+                stack.enter_context(mock.patch.object(bn_mod, name, fn))
             torch.sin(bn(xx)).sum().backward()
         torch.cuda.synchronize()
-        assert (mo.MOMENTS.launches - n_m, mo.PAIR.launches - n_p) == ((0, 0) if plain else (1, 1))
+        assert [k.launches - n for k, n in zip(kernels, before)] == [0 if plain else 1] * 4
         runs.append((xx.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var))
     for a, b in zip(*runs):
         assert (a - b).abs().max().item() / max(b.abs().max().item(), 1.0) < 1e-5
@@ -212,18 +276,40 @@ def test_bn_train_runs_the_kernels(dev, gen):
 def test_kernel_wrappers_reject_cpu_and_non_channels_last(dev):
     from s2anet_tpu_torch.models.bn import BatchNorm2d
 
+    v = torch.zeros(64)
     with pytest.raises(ValueError):
         mo.channel_moments_cuda(torch.zeros(4, 64))
     with pytest.raises(ValueError):
         mo.grad_channel_sums_cuda(torch.zeros(4, 64), torch.zeros(4, 64))
     with pytest.raises(ValueError):
+        mo.bn_stats_cuda(torch.zeros(4, 64), v, v, v, torch.tensor(0), 1e-5, 0.9)
+    with pytest.raises(ValueError):
+        mo.bn_apply_cuda(torch.zeros(4, 64), v, v, v)
+    with pytest.raises(ValueError):
+        mo.bn_grad_cuda(torch.zeros(4, 64), torch.zeros(4, 64), v, v)
+    with pytest.raises(ValueError):
+        mo.bn_dx_cuda(torch.zeros(4, 64), torch.zeros(4, 64), v, v, v, v)
+    with pytest.raises(ValueError):
         dc.deform_conv2d_bwd_cuda(torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 9, 2),
                                   torch.zeros(3, 3, 8, 8), torch.zeros(1, 4, 4, 8))
     nchw = torch.zeros(2, 64, 8, 8, device=dev)  # contiguous NCHW
+    vd = torch.zeros(64, device=dev)
+    nhwc = nchw.permute(0, 2, 3, 1)  # not contiguous
     with pytest.raises(ValueError):
-        mo.channel_moments(nchw.permute(0, 2, 3, 1))
+        mo.channel_moments(nhwc)
+    with pytest.raises(ValueError):
+        mo.bn_apply(nhwc, vd, vd, vd)
+    with pytest.raises(ValueError):
+        mo.bn_grad(nhwc, nhwc.contiguous(), vd, vd)
+    with pytest.raises(ValueError):
+        mo.bn_dx(nhwc, nhwc.contiguous(), vd, vd, vd, vd)
     with pytest.raises(ValueError):
         BatchNorm2d(64).to(dev).train()(nchw)
+    # the backward raises on an output gradient that is not channels-last
+    x = torch.zeros(2, 64, 8, 8, device=dev).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    with pytest.raises(ValueError):
+        BatchNorm2d(64).to(dev).train()(x).backward(nchw)
 
 
 def test_small_train_step_kernel_path(dev):
@@ -240,4 +326,5 @@ def test_small_train_step_kernel_path(dev):
         "s2a_deform_conv2d_fwd": 5, "s2a_deform_conv2d_bwd": 5,
         "s2a_box_iou_rotated": 4,  # FAM and ODM assignment, per image
         "s2a_nms_rotated_mask": 0, "s2a_nms_rotated_sweep": 0,
-        "s2a_channel_moments": 20, "s2a_grad_channel_sums": 20}
+        "s2a_channel_moments": 20, "s2a_grad_channel_sums": 20,
+        "s2a_bn_apply": 20, "s2a_bn_dx": 20}
