@@ -13,7 +13,10 @@ last line:
                and in f32 (TF32 off), and 1x1 / 2x2 / odd maps with offsets
                that leave the image
   4. kernel 2  rotated IoU vs the plain version (random and degenerate
-               boxes), NMS bitmask and keep masks vs the plain NMS
+               boxes); the NMS bitmask (the bits of valid rows the sweep
+               reads) and keep masks vs the plain NMS on clustered
+               candidates, with valid flags as a prefix and not, and on the
+               degenerate boxes
   5. serving   python -m s2anet_tpu_torch.predict on 8 synthetic 1024x1024
                chips (R-50, 15 classes, bf16, folded BN, seeded weights),
                launch counts of every kernel; outputs finite with the right
@@ -21,8 +24,11 @@ last line:
                path on the card, >= 95% of detections matched 1:1: in bf16
                by (label, score, rotated IoU >= 0.5), in float32 (TF32 off)
                by (label, score, centre within 1 px)
-  6. times     chips/s at batch 8 (2 warm-up batches, 7 timed), peak device
-               memory, each kernel against its plain version (CUDA events),
+  6. times     chips/s at batch 8 (2 warm-up batches, 7 timed) at score_thr
+               0.05 and 0.005 (where the NMS has 4096 valid candidates per
+               image), peak device memory, each kernel against its plain
+               version (CUDA events), the NMS mask also on 8 x 4096
+               clustered candidates with its own bound,
                the AlignConv forward per level P3-P7 (TFLOP/s, gathered
                bytes/s, and cuDNN's bf16 3x3 convolution of the same shape
                as a yardstick, dense_conv_ms), and a profiler table of one
@@ -44,8 +50,10 @@ last line:
                53 BatchNorm inputs of one R-50 1024^2 batch-8 step, each
                kernel in turns with its library call
                (torch.batch_norm_stats, torch.batch_norm_backward_reduce,
-               torch.batch_norm_elemt, torch.batch_norm_backward_elemt),
-               and the whole BN forward and backward against cuDNN's
+               torch.batch_norm_elemt, torch.batch_norm_backward_elemt);
+               the sums kernels' device time per kernel name (profiler)
+               beside their event-timed sweep and the host's enqueue time
+               per call; and the whole BN forward and backward against cuDNN's
                F.batch_norm: per input, and as a step runs the layers (53
                forwards, then one backward over all of them) with the
                kernel time and the host's enqueue time of the latter
@@ -216,6 +224,46 @@ def unpack_mask(torch, mask, k):
     """``[B, K, ceil(K/64)]`` int64 words -> ``[B, K, K]`` bool."""
     bits = (mask[..., None] >> torch.arange(64, device=mask.device)) & 1
     return bits.reshape(mask.shape[0], k, -1)[:, :, :k].bool()
+
+
+def mask_bits_differing(torch, nms, boxes, labels, valid, thr):
+    """``(bits differing, suppressing pairs)``: the NMS mask kernel's bits of
+    the valid rows, from each row's own word on (the words the sweep reads),
+    against ``overlap_plain``."""
+    b, k = valid.shape
+    bits = unpack_mask(torch, nms.nms_mask_cuda(boxes, labels, valid, thr), k)
+    torch.cuda.synchronize()
+    idx = torch.arange(k, device=boxes.device)
+    read = (idx[None, :] // 64) >= (idx[:, None] // 64)
+    over = nms.overlap_plain(boxes, labels, valid, thr, k)
+    return ((bits & read) != over)[valid].sum().item(), int(over.sum())
+
+
+def mask_bound(torch, boxes, labels, valid):
+    """``(ms, by)``: the NMS mask's bound on ``[B, K]`` score-sorted
+    candidates. The pairs j > i of valid candidates with equal labels run
+    the IoU routine (at full cost where the bounding circles meet); it
+    reads the candidates and writes the words on and above the diagonal."""
+    b, k = valid.shape
+    n = int(valid.sum(1).max())
+    ops = 0
+    for i in range(b):
+        vi = valid[i, :n]
+        same = ((labels[i, :n, None] == labels[i, None, :n]) & vi[:, None] & vi[None, :]).triu(1)
+        bx = boxes[i, :n]
+        r = 0.5 * torch.sqrt(bx[:, 2] ** 2 + bx[:, 3] ** 2)
+        near = (torch.cdist(bx[:, :2].double(), bx[:, :2].double())
+                <= (r[:, None] + r[None, :]).double())
+        full = (same & near).sum().item()
+        ops += full * IOU_PAIR_OPS + (same.sum().item() - full) * IOU_REJECT_OPS
+    cols = (k + 63) // 64
+    words = b * 64 * sum(cols - rb for rb in range(cols))
+    return bound(b * k * (5 * 4 + 4 + 1) + 8 * words, ops, F32_FLOP_S)
+
+
+def short_name(key: str) -> str:
+    """A kernel's name without its arguments and namespace."""
+    return key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
 
 
 def degenerate_boxes(torch, dev):
@@ -532,6 +580,19 @@ def phase_moments(torch, dev, gen):
             f"{REPEATS} sweeps; plain {tp:.3f} ms; bound {bd:.3f} ms ({bby}, "
             f"{nbytes[key] / 1e9:.2f} GB, {nbytes[key] / elems:.2f} B/elem at "
             f"{HBM_BYTES_S / 1e12:.2f} TB/s): {bd / tk:.1%} of the bound")
+    # the sums kernels' device time from the profiler, by kernel, and the
+    # host's time to enqueue a sweep: the event-timed sweep is the larger
+    # of the two where the host cannot keep the device fed
+    for key in ("moments", "pair"):
+        split = kernel_split(torch, sweep(pairs[key][0]), 3)
+        dev_ms = sum(split.values())
+        host = host_ms(torch, sweep(pairs[key][0]))
+        rows[key]["device_ms"] = dev_ms
+        say(f"   {label[key]}, device time (profiler) over the 53 inputs: {dev_ms:.3f} ms, "
+            f"{rows[key]['bound_ms'] / dev_ms:.1%} of the bound ("
+            + ", ".join(f"{short_name(n)} {ms:.3f} ms" for n, ms in sorted(split.items()))
+            + f"); event-timed sweep {rows[key]['ms']:.3f} ms; the host's enqueue time "
+            f"{host:.3f} ms, {1e3 * host / len(data):.1f} us a call")
     # the whole layer, forward and backward, in turns with cuDNN's
     # F.batch_norm: (1) per input, with a wait after each input's loop (the
     # PR 2-3 measure; on the small layers it times the host's dispatch and
@@ -641,7 +702,7 @@ def phase_train(torch, dev, card, out_dir):
         grp = ("AlignConv forward kernel" if "deform_fwd" in name else
                "AlignConv backward kernel" if "deform_bwd" in name
                else "BN sums and finishing kernels (moments, pair)" if "partial_sums" in name
-               or "finish_sums" in name
+               or "finish_sums" in name or "channel_sums" in name
                else "BN apply kernel" if "bn_apply" in name
                else "BN dx kernel" if "bn_dx" in name
                else "rotated IoU kernel" if "box_iou_rotated" in name
@@ -893,13 +954,24 @@ def main(argv=None) -> int:
           f"degenerate geometries: max |kernel - plain| = {derr:.3g}, diag = 1")
     iou_err = max(err, derr)
 
-    boxes, labels, valid = clustered_candidates(torch, gen, BATCH, 4096, dev)
-    keep_k = nms.nms_keep_cuda(boxes, labels, valid, 0.5)
-    torch.cuda.synchronize()
-    keep_p = nms.nms_keep_plain(boxes, labels, valid, 0.5)
-    check(torch.equal(keep_k, keep_p) and keep_k.sum().item() < valid.sum().item(),
-          f"NMS keep, 8 x 4096 clustered candidates: identical "
-          f"({keep_k.sum().item()} kept of {valid.sum().item()} valid)")
+    clustered = clustered_candidates(torch, gen, BATCH, 4096, dev)
+    # the same boxes with valid flags that are not a prefix
+    scattered = clustered[:2] + (clustered[2] & (torch.rand(
+        clustered[2].shape, generator=gen, device=dev) < 0.7),)
+    deg_cand = (deg[None], torch.zeros(1, deg.shape[0], dtype=torch.int64, device=dev),
+                torch.ones(1, deg.shape[0], dtype=torch.bool, device=dev))
+    for name, (boxes, labels, valid) in (("8 x 4096 clustered", clustered),
+                                         ("8 x 4096 clustered, valid not a prefix", scattered),
+                                         (f"{deg.shape[0]} degenerate boxes", deg_cand)):
+        diff, pairs = mask_bits_differing(torch, nms, boxes, labels, valid, 0.5)
+        keep_k = nms.nms_keep_cuda(boxes, labels, valid, 0.5)
+        torch.cuda.synchronize()
+        keep_p = nms.nms_keep_plain(boxes, labels, valid, 0.5)
+        check(diff == 0 and torch.equal(keep_k, keep_p),
+              f"NMS on {name} candidates: mask bits of valid rows differing {diff} "
+              f"({pairs} suppressing pairs); keeps identical ({keep_k.sum().item()} kept of "
+              f"{valid.sum().item()} valid)")
+    boxes, labels, valid = clustered
 
     say("== 5. serving path")
     cfg = ModelConfig()
@@ -993,18 +1065,14 @@ def main(argv=None) -> int:
     cbc, clc, cvc = cb.contiguous(), cl.int().contiguous(), cv.contiguous()
     stream = torch.cuda.current_stream().cuda_stream
     mask = torch.empty(BATCH, k, (k + 63) // 64, dtype=torch.int64, device=dev)
-    nms.NMS_MASK(cbc.data_ptr(), clc.data_ptr(), cvc.data_ptr(), cfg.nms_iou_thr,
-                 mask.data_ptr(), BATCH, k, stream)
-    torch.cuda.synchronize()
-    bits = unpack_mask(torch, mask, k)[:, :n, :n].triu(1)
+    mask_diff, n_pairs = mask_bits_differing(torch, nms, cb, cl, cv, cfg.nms_iou_thr)
     over = nms.overlap_plain(cb, cl, cv, cfg.nms_iou_thr, n)
-    mask_diff = (bits != over).sum().item()
     keep_k = nms.nms_keep_cuda(cb, cl, cv, cfg.nms_iou_thr)
     keep_p = nms.nms_keep_plain(cb, cl, cv, cfg.nms_iou_thr)
     keep_diff = (keep_k != keep_p).sum().item()
     check(mask_diff == 0 and keep_diff == 0,
-          f"main-path candidates ({n} valid of {k}): mask bits differing {mask_diff}, "
-          f"keeps differing {keep_diff} ({int(over.sum())} suppressing pairs)")
+          f"main-path candidates ({n} valid of {k}): mask bits of valid rows differing "
+          f"{mask_diff}, keeps differing {keep_diff} ({n_pairs} suppressing pairs)")
 
     say("== 6. times")
     say(f"   card: {card}")
@@ -1028,6 +1096,17 @@ def main(argv=None) -> int:
     chips_s = n_timed * BATCH / sum(lat)
     say(f"   main path: {chips_s:.2f} chips/s at batch {BATCH}, {SIZE}x{SIZE} bf16; "
         f"batch ms {[round(1000 * t, 1) for t in lat]}; peak memory {peak:.2f} GiB")
+    # the traffic where the NMS has work: at score_thr 0.005 the random-weight
+    # scores give every image pre_nms_cap valid candidates
+    pred.predict(imgs, score_thr=0.005)[0].sum().item()
+    lat_busy = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        pred.predict(imgs, score_thr=0.005)[0].sum().item()
+        lat_busy.append(time.perf_counter() - t0)
+    say(f"   at score_thr 0.005 ({n} valid NMS candidates per image): "
+        f"{n_timed * BATCH / sum(lat_busy):.2f} chips/s; batch ms "
+        f"{[round(1000 * t, 1) for t in lat_busy]} (score_thr {cfg.score_thr}: {chips_s:.2f})")
 
     # AlignConv at the five levels' shapes of one batch
     levels = []
@@ -1074,33 +1153,28 @@ def main(argv=None) -> int:
     def run_sweep():
         nms.NMS_SWEEP(mask.data_ptr(), cvc.data_ptr(), keep_buf.data_ptr(), BATCH, k, stream)
 
-    t_mk, _ = cuda_ms(torch, run_mask, 10)
-    t_sk, _ = cuda_ms(torch, run_sweep, 10)
+    t_mk, s_mk = cuda_ms(torch, run_mask, 10)
+    t_sk, s_sk = cuda_ms(torch, run_sweep, 10)
     t_mp, _ = cuda_ms(torch, lambda: nms.overlap_plain(cb, cl, cv, cfg.nms_iou_thr, n), 1)
     t_sp, _ = cuda_ms(torch, lambda: nms.sweep_plain(over, cv[:, :n]), 1)
-    # mask: the pairs j > i of valid candidates with equal labels run the
-    # IoU routine; it writes the words on and above the diagonal
-    cols = (k + 63) // 64
-    ops = 0
-    for i in range(BATCH):
-        vi = cv[i, :n]
-        same = (cl[i, :n, None] == cl[i, None, :n]) & vi[:, None] & vi[None, :]
-        same = same.triu(1)
-        b_i = cb[i, :n]
-        r = 0.5 * torch.sqrt(b_i[:, 2] ** 2 + b_i[:, 3] ** 2)
-        near = torch.cdist(b_i[:, :2].double(), b_i[:, :2].double()) <= (r[:, None] + r[None, :]).double()
-        full = (same & near).sum().item()
-        ops += full * IOU_PAIR_OPS + (same.sum().item() - full) * IOU_REJECT_OPS
-    words = BATCH * 64 * sum(cols - rb for rb in range(cols))
-    mask_bound = bound(BATCH * k * (5 * 4 + 4 + 1) + 8 * words, ops, F32_FLOP_S)
+    m_bound = mask_bound(torch, cb, cl, cv)
     # sweep: the diagonal words, and each survivor's words right of its block
+    cols = (k + 63) // 64
     kept = keep_buf.nonzero()[:, 1]
     sweep_words = BATCH * k + (cols - kept // 64 - 1).sum().item()
     sweep_bound = bound(8 * sweep_words + 2 * BATCH * k, 0, F32_FLOP_S)
     say(f"   NMS on the main path's candidates (8 x {k}, {n} valid max): mask kernel "
-        f"{t_mk:.3f} ms vs plain overlap {t_mp:.3f} ms, bound {mask_bound[0]:.4f} ms "
-        f"({mask_bound[1]}); sweep kernel {t_sk:.3f} ms vs plain sweep {t_sp:.3f} ms, "
-        f"bound {sweep_bound[0]:.4f} ms ({sweep_bound[1]})")
+        f"{t_mk:.3f} ms (spread {s_mk:.1%}) vs plain overlap {t_mp:.3f} ms, bound "
+        f"{m_bound[0]:.4f} ms ({m_bound[1]}): {m_bound[0] / t_mk:.1%} of the bound; sweep "
+        f"kernel {t_sk:.3f} ms (spread {s_sk:.1%}) vs plain sweep {t_sp:.3f} ms, bound "
+        f"{sweep_bound[0]:.4f} ms ({sweep_bound[1]})")
+    # a crowded scene: the circle test rejects fewer pairs
+    clu = nms._mask_inputs(*clustered)
+    t_mc, s_mc = cuda_ms(torch, lambda: nms._mask(*clu, cfg.nms_iou_thr, stream), 10)
+    c_bound = mask_bound(torch, *clustered)
+    say(f"   NMS mask on 8 x 4096 clustered candidates ({int(clustered[2].sum())} valid): "
+        f"kernel {t_mc:.3f} ms (spread {s_mc:.1%}), bound {c_bound[0]:.4f} ms ({c_bound[1]}): "
+        f"{c_bound[0] / t_mc:.1%} of the bound")
     c0 = cb[0].contiguous()
     t_ik4, _ = cuda_ms(torch, lambda: iou.box_iou_rotated_cuda(c0, c0), 10)
     say(f"   box_iou_rotated {k}x{k} (image 0's candidates): kernel {t_ik4:.3f} ms "
@@ -1187,7 +1261,8 @@ def main(argv=None) -> int:
              replaces="s2anet_tpu/ops/pallas/iou_kernel.py:46",
              launches=launches["s2a_nms_rotated_mask"], path="serve",
              max_abs_err=float(mask_diff > 0), ms=t_mk, plain_ms=t_mp,
-             bound_ms=mask_bound[0], bound_by=mask_bound[1], library_ms=None),
+             bound_ms=m_bound[0], bound_by=m_bound[1], library_ms=None,
+             clustered_ms=t_mc, clustered_bound_ms=c_bound[0]),
         dict(name="nms_rotated_sweep", source=src_i,
              replaces="s2anet_tpu/ops/nms_rotated.py:28",
              launches=launches["s2a_nms_rotated_sweep"], path="serve",

@@ -27,32 +27,58 @@
 // layer-1 activation (8 x 256 x 256 x 256 bf16, 268 MB), and the 50 MB L2
 // holds only the later layers' inputs.
 //
-// The sums are a two-pass reduction with no atomics, so the statistics are
-// the same from run to run: a 2-D grid over row chunks x channel vectors
-// writes each block's partial sums to a [chunks, 2, C] float32 workspace,
-// and a second small kernel adds the chunks in a fixed order and then
-// finishes the per-channel vectors the elementwise pass needs. The
-// finishing step and the elementwise kernels round each operation on its
-// own (__fadd_rn, __fmul_rn, ..., never contracted into an FMA) in the order
-// of the plain PyTorch expressions, so given the same per-channel vectors
-// they give the plain version's bits; the partial sums keep their FMAs.
+// The sums and their finishing step are one launch per layer and
+// direction (channel_sums; redesigned for Hopper). The grid is one resident
+// wave (the wrapper sizes it from cudaOccupancyMaxActiveClusters): channel
+// groups x blocks along the rows, in thread block clusters of 8 along the
+// rows, each block striding over tiles of rows (4 rows in flight a thread,
+// 2 in the pair kernel, which reads two inputs). Each thread sums its rows;
+// the block adds its row lanes value by value in a fixed order; the cluster
+// adds its 8 block partials through distributed shared memory in rank
+// order and writes one [2, C] partial per cluster to a workspace. After a
+// cluster barrier, rank 0 draws a ticket for its channel group (an atomic
+// add with release and acquire semantics at device scope, which orders the
+// whole cluster's writes: no fence in every thread). The cluster that draws
+// the last ticket adds the cluster partials, each rank a fixed range of them
+// in a fixed order, pushes its sums into rank 0's shared memory, and rank 0
+// adds the ranks in rank order and runs the finishing step, a thread a
+// channel, on inputs it loaded at the start; then it sets the ticket back
+// to 0, so one persistent buffer of tickets serves every launch and every
+// CUDA-graph replay, with no memset. Which cluster finishes last changes no
+// addition: the statistics are the same bits from run to run. One wave
+// leaves no partly filled second wave, and one launch no second kernel
+// whose few blocks walk every partial.
+//
+// What bounds it on an H100: reading the input once (2 bytes a bf16
+// element, 4 for the pair); on the small layers of R-50's stages 3-4 (8-17
+// MB) the fixed cost of a launch and of the last cluster's tail (the
+// ticket, the workspace reads, the finishing) is of the order of the read.
+
+// The finishing step and the elementwise kernels round each operation on
+// its own (__fadd_rn, __fmul_rn, ..., never contracted into an FMA) in the
+// order of the plain PyTorch expressions, so given the same per-channel
+// vectors they give the plain version's bits; the partial sums keep their
+// FMAs.
 //
 // Every kernel walks 16-byte vectors (8 bf16 or 4 float32 channels) of
 // consecutive rows, threadIdx.x over channel vectors and threadIdx.y over
 // rows, 4 rows in flight per thread; a warp's loads cover whole 128-byte
-// row segments. The sum chunk count (from the wrapper) gives about 8 blocks
-// of 256 threads per SM; the elementwise kernels launch one resident wave
-// (from the occupancy calculator) that strides over the rows, each thread
-// holding its channels' vectors in registers.
+// row segments. The elementwise kernels launch one resident wave (from the
+// occupancy calculator) that strides over the rows, each thread holding its
+// channels' vectors in registers.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int NT = 256;  // threads per block
-constexpr int RU = 4;    // rows in flight per thread
+constexpr int RU = 4;    // rows in flight per thread of the elementwise kernels
+constexpr int CL = 8;    // blocks per cluster of the sums kernel
 
 template <typename T>
 struct Vec {
@@ -75,80 +101,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// block (TX, TY): threadIdx.x walks channel vectors, threadIdx.y rows.
-// PAIR = false: a = x, b = x*x over input x; PAIR = true: a = g, b = g*x.
-template <typename T, bool PAIR>
-__global__ void __launch_bounds__(NT)
-partial_sums(const T* __restrict__ x, const T* __restrict__ gr,
-             float* __restrict__ ws, int rows, int C, int rows_per_chunk) {
-  constexpr int V = Vec<T>::N;
-  __shared__ float s_a[NT * V];
-  __shared__ float s_b[NT * V];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int TX = blockDim.x, TY = blockDim.y;
-  const int nvec = C / V;
-  const int cv = blockIdx.y * TX + tx;
-  const long long r0 = (long long)blockIdx.x * rows_per_chunk;
-  const long long r1 = r0 + rows_per_chunk < rows ? r0 + rows_per_chunk : rows;
-
-  float a[V], b[V];
-#pragma unroll
-  for (int k = 0; k < V; ++k) a[k] = b[k] = 0.f;
-  if (cv < nvec) {
-    const long long col = (long long)cv * V;
-    for (long long r = r0 + ty; r < r1; r += (long long)TY * RU) {
-      Vec<T> xv[RU], gv[RU];
-#pragma unroll
-      for (int u = 0; u < RU; ++u) {
-        const long long rr = r + (long long)u * TY;
-        xv[u].u = rr < r1 ? *reinterpret_cast<const uint4*>(x + rr * C + col)
-                          : make_uint4(0u, 0u, 0u, 0u);
-        if (PAIR)
-          gv[u].u = rr < r1 ? *reinterpret_cast<const uint4*>(gr + rr * C + col)
-                            : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < RU; ++u) {
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          const float xf = to_f32(xv[u].v[k]);
-          if (PAIR) {
-            const float gf = to_f32(gv[u].v[k]);
-            a[k] += gf;
-            b[k] += gf * xf;
-          } else {
-            a[k] += xf;
-            b[k] += xf * xf;
-          }
-        }
-      }
-    }
-  }
-  // fixed-order sum over the TY row lanes
-  const int slot = ty * TX + tx;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    s_a[slot * V + k] = a[k];
-    s_b[slot * V + k] = b[k];
-  }
-  __syncthreads();
-  if (ty == 0 && cv < nvec) {
-    for (int y = 1; y < TY; ++y) {
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        a[k] += s_a[(y * TX + tx) * V + k];
-        b[k] += s_b[(y * TX + tx) * V + k];
-      }
-    }
-    float* wa = ws + (long long)blockIdx.x * 2 * C + (long long)cv * V;
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      wa[k] = a[k];
-      wa[C + k] = b[k];
-    }
-  }
-}
-
 // What the finishing step computes after the sums.
 enum Finish { SUMS = 0, STATS = 1, GRAD = 2 };
 
@@ -165,33 +117,29 @@ struct FinishArgs {
   float take;
 };
 
-// grid ceil(C/32), block (32, 8): channel c sums its chunks in a fixed order
-// into out[0:2, c], then finishes:
+// The per-channel inputs of the finishing step for channel c, loaded before
+// the sums so that their latency is off the kernel's tail:
+//   STATS: gamma, running mean, running var; GRAD: mean, rstd
+template <int MODE>
+__device__ __forceinline__ void finish_inputs(int c, const FinishArgs& f, float (&in)[3]) {
+  in[0] = in[1] = in[2] = 0.f;
+  if (MODE == STATS) {
+    in[0] = f.gamma[c];
+    in[1] = f.run_mean[c];
+    in[2] = f.run_var[c];
+  } else if (MODE == GRAD) {
+    in[0] = f.mean[c];
+    in[1] = f.rstd[c];
+  }
+}
+
+// Channel c's sums (a, b) go to out[0:2, c], then
 //   STATS: out[2:6, c] = mean, var, rstd, mul; running statistics updated,
-//          one added to the count of batches
+//          one added to the count of batches (by channel 0)
 //   GRAD:  out[2:5, c] = dgamma, a, b (dbeta = out[0, c])
 template <int MODE>
-__global__ void finish_sums(const float* __restrict__ ws, float* __restrict__ out,
-                            int C, int chunks, FinishArgs f) {
-  __shared__ float s_a[8][32];
-  __shared__ float s_b[8][32];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * 32 + tx;
-  float a = 0.f, b = 0.f;
-  if (c < C) {
-    for (int k = ty; k < chunks; k += 8) {
-      a += ws[(long long)k * 2 * C + c];
-      b += ws[(long long)k * 2 * C + C + c];
-    }
-  }
-  s_a[ty][tx] = a;
-  s_b[ty][tx] = b;
-  __syncthreads();
-  if (ty != 0 || c >= C) return;
-  for (int y = 1; y < 8; ++y) {
-    a += s_a[y][tx];
-    b += s_b[y][tx];
-  }
+__device__ __forceinline__ void finish(float a, float b, int c, int C, float* __restrict__ out,
+                                       const FinishArgs& f, const float (&in)[3]) {
   out[c] = a;
   out[C + c] = b;
   if (MODE == STATS) {
@@ -203,36 +151,195 @@ __global__ void finish_sums(const float* __restrict__ ws, float* __restrict__ ou
     out[2 * C + c] = mean;
     out[3 * C + c] = var;
     out[4 * C + c] = rstd;
-    out[5 * C + c] = __fmul_rn(f.gamma[c], rstd);
-    f.run_mean[c] = __fadd_rn(__fmul_rn(f.keep, f.run_mean[c]), __fmul_rn(f.take, mean));
-    f.run_var[c] = __fadd_rn(__fmul_rn(f.keep, f.run_var[c]), __fmul_rn(f.take, var));
+    out[5 * C + c] = __fmul_rn(in[0], rstd);
+    f.run_mean[c] = __fadd_rn(__fmul_rn(f.keep, in[1]), __fmul_rn(f.take, mean));
+    f.run_var[c] = __fadd_rn(__fmul_rn(f.keep, in[2]), __fmul_rn(f.take, var));
     if (c == 0) *f.count += 1;
   } else if (MODE == GRAD) {
     // dgamma = (sum gx - mean*sum g)*rstd; a = dbeta/n; b = rstd*dgamma/n
-    const float rstd = f.rstd[c];
-    const float dgamma = __fmul_rn(__fsub_rn(b, __fmul_rn(f.mean[c], a)), rstd);
+    const float rstd = in[1];
+    const float dgamma = __fmul_rn(__fsub_rn(b, __fmul_rn(in[0], a)), rstd);
     out[2 * C + c] = dgamma;
     out[3 * C + c] = __fmul_rn(a, f.inv_n);
     out[4 * C + c] = __fmul_rn(__fmul_rn(rstd, dgamma), f.inv_n);
   }
 }
 
+// The sums and their finishing step, one launch. Grid (chunks, groups) in
+// clusters of CL blocks along the chunks (chunks a multiple of CL), block
+// (TX, TY), TX*TY <= NT: threadIdx.x walks the channel vectors of group
+// blockIdx.y (TX*V channels); threadIdx.y the rows of the tiles of TY*R
+// rows that fall to block blockIdx.x, tile blockIdx.x + k*chunks.
+// PAIR = false: a = x, b = x*x over input x; PAIR = true: a = g, b = g*x.
+// ws holds one [2, C] partial per cluster; tickets[groups] are 0 between
+// launches (the last cluster of each group sets its ticket back to 0).
+// At most 64 registers (four blocks an SM, whose loads keep the memory busy):
+// left to itself, ptxas picks 48 for the float32 moments and spills.
 template <typename T, bool PAIR, int MODE>
-int launch_sums(const void* x, const void* g, void* out, void* ws, int rows, int C,
-                int chunks, const FinishArgs& f, cudaStream_t s) {
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 4)
+channel_sums(const T* __restrict__ x, const T* __restrict__ gr, float* __restrict__ ws,
+             float* __restrict__ out, unsigned* __restrict__ tickets, int rows, int C,
+             FinishArgs f) {
   constexpr int V = Vec<T>::N;
-  if (C % V != 0 || chunks < 1) return (int)cudaErrorInvalidValue;
+  constexpr int R = PAIR ? 2 : 4;  // rows in flight a thread (moments.sums_rows)
+  __shared__ float s_a[NT * V];
+  __shared__ float s_b[NT * V];
+  __shared__ float s_part[2 * 32 * V];     // the block's partial: [a | b]
+  __shared__ float s_fin[CL * 2 * 32 * V];  // rank 0: the ranks' sums, pushed to it
+  __shared__ int s_last;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int TX = blockDim.x, TY = blockDim.y;
+  const int tid = ty * TX + tx, nt = TX * TY;   // nt >= W >= wc
+  const int nvec = C / V;
+  const int cv = blockIdx.y * TX + tx;
+  const int W = TX * V;                         // channels of a whole group
+  const int c0 = blockIdx.y * W;                // the group's first channel
+  const int wc = C - c0 < W ? C - c0 : W;       // the channels it holds
+  const int nv = 2 * wc;                        // its values: wc sums a, wc sums b
+  const int rank = (int)cluster.block_rank();
+  // rank 0 thread j < wc finishes channel c0 + j if its cluster ends up
+  // last: its inputs are loaded now, off the kernel's tail
+  float fin[3];
+  finish_inputs<MODE>(c0 + (rank == 0 && tid < wc ? tid : 0), f, fin);
+
+  // 1. this thread's sums over its rows of the block's tiles
+  float a[V], b[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) a[k] = b[k] = 0.f;
+  if (cv < nvec) {
+    const long long col = (long long)cv * V;
+    const long long step = (long long)gridDim.x * TY * R;
+    for (long long r = (long long)blockIdx.x * TY * R + ty; r < rows; r += step) {
+      Vec<T> xv[R], gv[R];
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const long long rr = r + (long long)u * TY;
+        xv[u].u = rr < rows ? *reinterpret_cast<const uint4*>(x + rr * C + col)
+                            : make_uint4(0u, 0u, 0u, 0u);
+        if (PAIR)
+          gv[u].u = rr < rows ? *reinterpret_cast<const uint4*>(gr + rr * C + col)
+                              : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float xf = to_f32(xv[u].v[k]);
+          if (PAIR) {
+            const float gf = to_f32(gv[u].v[k]);
+            a[k] += gf;
+            b[k] += gf * xf;
+          } else {
+            a[k] += xf;
+            b[k] += xf * xf;
+          }
+        }
+      }
+    }
+  }
+  // 2. the block's partial: each value over the TY row lanes, in order
+  // (thread (tx, ty) holds channel j = tx*V + k at s_[ty*W + j])
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    s_a[tid * V + k] = a[k];
+    s_b[tid * V + k] = b[k];
+  }
+  __syncthreads();
+  for (int v = tid; v < nv; v += nt) {
+    const float* src = v < wc ? s_a : s_b;
+    const int j = v < wc ? v : v - wc;
+    float acc = 0.f;
+    for (int y = 0; y < TY; ++y) acc += src[y * W + j];
+    s_part[v] = acc;
+  }
+  cluster.sync();
+  // 3. the cluster's partial: the CL blocks' partials, added in rank order
+  // through distributed shared memory, to the workspace
+  const long long wrow = (long long)(blockIdx.x / CL) * 2 * C;
+  for (int v = rank * nt + tid; v < nv; v += CL * nt) {
+    float acc = 0.f;
+    for (int q = 0; q < CL; ++q) acc += cluster.map_shared_rank(s_part, q)[v];
+    ws[wrow + (v < wc ? c0 + v : C + c0 + v - wc)] = acc;
+  }
+  // every partial read (each block's shared memory may go) and written; the
+  // barrier orders the cluster's writes before rank 0's release below
+  cluster.sync();
+  // 4. a ticket per group (release and acquire at device scope): the
+  // cluster that draws the last one adds up the cluster partials. Which
+  // cluster that is does not change the order of any addition below.
+  const int P = gridDim.x / CL;
+  if (rank == 0 && tid == 0) {
+    unsigned drawn;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(drawn) : "l"(tickets + blockIdx.y) : "memory");
+    const int last = drawn == (unsigned)(P - 1);
+    for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(&s_last, q) = last;
+  }
+  cluster.sync();
+  if (!s_last) return;
+  // rank q adds the cluster partials [q*P/CL, (q+1)*P/CL), each value in S
+  // ranges when the block's threads outnumber the values, and pushes its
+  // sums to rank 0
+  const int lo = rank * P / CL, hi = (rank + 1) * P / CL;
+  const int S = nt / nv > 1 ? nt / nv : 1;
+  for (int i = tid; i < nv * S; i += nt) {
+    const int v = i % nv, s = i / nv;
+    const int plo = lo + (hi - lo) * s / S, phi = lo + (hi - lo) * (s + 1) / S;
+    const long long col = v < wc ? c0 + v : C + c0 + v - wc;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int p = plo; p < phi; ++p) acc += __ldcg(ws + (long long)p * 2 * C + col);
+    s_a[i] = acc;
+  }
+  __syncthreads();
+  float* to0 = cluster.map_shared_rank(s_fin, 0) + rank * nv;
+  for (int v = tid; v < nv; v += nt) {
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s) acc += s_a[s * nv + v];
+    to0[v] = acc;
+  }
+  cluster.sync();
+  if (rank != 0) return;
+  // 5. rank 0: the ranks' sums in rank order, then the finishing step, a
+  // thread a channel
+  if (tid < wc) {
+    float sa = 0.f, sb = 0.f;
+    for (int q = 0; q < CL; ++q) {
+      sa += s_fin[q * nv + tid];
+      sb += s_fin[q * nv + wc + tid];
+    }
+    finish<MODE>(sa, sb, c0 + tid, C, out, f, fin);
+  }
+  if (tid == 0) tickets[blockIdx.y] = 0u;  // ready for the next launch
+}
+
+template <typename T, bool PAIR, int MODE>
+int launch_sums(const void* x, const void* g, void* out, void* ws, void* tickets, int rows,
+                int C, int chunks, const FinishArgs& f, cudaStream_t s) {
+  constexpr int V = Vec<T>::N;
+  if (C % V != 0 || chunks < CL || chunks % CL != 0) return (int)cudaErrorInvalidValue;
   const int nvec = C / V;
   const int tx = nvec < 32 ? nvec : 32;
   dim3 block(tx, NT / tx);
-  const int per = (rows + chunks - 1) / chunks;
-  dim3 grid((unsigned)((rows + per - 1) / per), (unsigned)((nvec + tx - 1) / tx));
-  partial_sums<T, PAIR><<<grid, block, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<float*>(ws), rows, C, per);
-  finish_sums<MODE><<<(C + 31) / 32, dim3(32, 8), 0, s>>>(
-      static_cast<const float*>(ws), static_cast<float*>(out), C, (int)grid.x, f);
+  dim3 grid((unsigned)chunks, (unsigned)((nvec + tx - 1) / tx));
+  channel_sums<T, PAIR, MODE><<<grid, block, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<float*>(ws),
+      static_cast<float*>(out), static_cast<unsigned*>(tickets), rows, C, f);
   return (int)cudaGetLastError();
+}
+
+// Blocks of one resident wave of the sums kernel (whole clusters).
+template <typename T, bool PAIR, int MODE>
+int sums_wave(int* blocks) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(
+      &clusters, reinterpret_cast<const void*>(&channel_sums<T, PAIR, MODE>), &cfg);
+  *blocks = clusters * CL;
+  return (int)e;
 }
 
 // Per-channel vectors of the elementwise kernels: V consecutive channels
@@ -386,51 +493,62 @@ int launch_dx(const void* g, const void* x, const void* mean, const void* mul,
 extern "C" {
 
 // x [rows, C] (channels last, 16-byte aligned; dtype 0 = float32, C % 4 == 0,
-// 1 = bfloat16, C % 8 == 0); out float32, ws float32 [chunks, 2, C] scratch.
-// With gamma null: out [2, C] = sum, sum of squares. Otherwise out [6, C] =
-// sum, sum of squares, mean, var, rstd, mul = gamma*rstd;
-// run_mean / run_var [C] become keep*running + take*(mean / var) and the
-// int64 count gains one. Returns the launches' cudaError_t.
-int s2a_channel_moments(const void* x, void* out, void* ws, int rows, int C, int chunks,
-                        int dtype, const void* gamma, void* run_mean, void* run_var,
-                        void* count, float eps, float keep, float take, void* stream) {
+// 1 = bfloat16, C % 8 == 0); out float32; ws float32 [chunks/8, 2, C]
+// scratch; tickets uint32 [ceil(C/(32*V))], zero (and left zero) by every
+// launch; chunks (blocks along the rows) a multiple of 8. With gamma null: out [2, C] = sum, sum of
+// squares. Otherwise out [6, C] = sum, sum of squares, mean, var, rstd,
+// mul = gamma*rstd; run_mean / run_var [C] become keep*running +
+// take*(mean / var) and the int64 count gains one. One launch; returns its
+// cudaError_t.
+int s2a_channel_moments(const void* x, void* out, void* ws, void* tickets, int rows, int C,
+                        int chunks, int dtype, const void* gamma, void* run_mean,
+                        void* run_var, void* count, float eps, float keep, float take,
+                        void* stream) {
   if (rows == 0 || C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FinishArgs f{static_cast<const float*>(gamma), static_cast<float*>(run_mean),
                static_cast<float*>(run_var), static_cast<long long*>(count), nullptr,
                nullptr, 1.0f / (float)rows, eps, keep, take};
-  if (gamma == nullptr) {
-    if (dtype == 0) return launch_sums<float, false, SUMS>(x, nullptr, out, ws, rows, C, chunks, f, s);
-    if (dtype == 1)
-      return launch_sums<__nv_bfloat16, false, SUMS>(x, nullptr, out, ws, rows, C, chunks, f, s);
-  } else {
-    if (dtype == 0) return launch_sums<float, false, STATS>(x, nullptr, out, ws, rows, C, chunks, f, s);
-    if (dtype == 1)
-      return launch_sums<__nv_bfloat16, false, STATS>(x, nullptr, out, ws, rows, C, chunks, f, s);
-  }
+  const bool stats = gamma != nullptr;
+  if (dtype == 0)
+    return stats ? launch_sums<float, false, STATS>(x, nullptr, out, ws, tickets, rows, C, chunks, f, s)
+                 : launch_sums<float, false, SUMS>(x, nullptr, out, ws, tickets, rows, C, chunks, f, s);
+  if (dtype == 1)
+    return stats ? launch_sums<__nv_bfloat16, false, STATS>(x, nullptr, out, ws, tickets, rows, C,
+                                                            chunks, f, s)
+                 : launch_sums<__nv_bfloat16, false, SUMS>(x, nullptr, out, ws, tickets, rows, C,
+                                                           chunks, f, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// g, x [rows, C], one type (as above); out float32. With mean null:
-// out [2, C] = sum g, sum g*x. Otherwise out [5, C] = sum g (= dbeta),
-// sum g*x, dgamma, a = dbeta/n, b = rstd*dgamma/n, from the forward's mean
-// and rstd [C].
-int s2a_grad_channel_sums(const void* g, const void* x, void* out, void* ws, int rows,
-                          int C, int chunks, int dtype, const void* mean,
+// g, x [rows, C], one type; ws, tickets and chunks as above; out float32.
+// With mean null: out [2, C] = sum g, sum g*x. Otherwise out [5, C] = sum g
+// (= dbeta), sum g*x, dgamma, a = dbeta/n, b = rstd*dgamma/n, from the
+// forward's mean and rstd [C].
+int s2a_grad_channel_sums(const void* g, const void* x, void* out, void* ws, void* tickets,
+                          int rows, int C, int chunks, int dtype, const void* mean,
                           const void* rstd, void* stream) {
   if (rows == 0 || C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FinishArgs f{nullptr, nullptr, nullptr, nullptr, static_cast<const float*>(mean),
                static_cast<const float*>(rstd), 1.0f / (float)rows, 0.f, 0.f, 0.f};
-  if (mean == nullptr) {
-    if (dtype == 0) return launch_sums<float, true, SUMS>(x, g, out, ws, rows, C, chunks, f, s);
-    if (dtype == 1)
-      return launch_sums<__nv_bfloat16, true, SUMS>(x, g, out, ws, rows, C, chunks, f, s);
-  } else {
-    if (dtype == 0) return launch_sums<float, true, GRAD>(x, g, out, ws, rows, C, chunks, f, s);
-    if (dtype == 1)
-      return launch_sums<__nv_bfloat16, true, GRAD>(x, g, out, ws, rows, C, chunks, f, s);
-  }
+  const bool grad = mean != nullptr;
+  if (dtype == 0)
+    return grad ? launch_sums<float, true, GRAD>(x, g, out, ws, tickets, rows, C, chunks, f, s)
+                : launch_sums<float, true, SUMS>(x, g, out, ws, tickets, rows, C, chunks, f, s);
+  if (dtype == 1)
+    return grad ? launch_sums<__nv_bfloat16, true, GRAD>(x, g, out, ws, tickets, rows, C, chunks, f, s)
+                : launch_sums<__nv_bfloat16, true, SUMS>(x, g, out, ws, tickets, rows, C, chunks, f, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// *blocks = the blocks of one resident wave of the sums kernel for dtype
+// (as above) and pair (0: moments, 1: g, x pairs), in whole clusters of 8.
+int s2a_sums_wave(int dtype, int pair, void* blocks) {
+  int* n = static_cast<int*>(blocks);
+  if (dtype == 0) return pair ? sums_wave<float, true, GRAD>(n) : sums_wave<float, false, STATS>(n);
+  if (dtype == 1)
+    return pair ? sums_wave<__nv_bfloat16, true, GRAD>(n) : sums_wave<__nv_bfloat16, false, STATS>(n);
   return (int)cudaErrorInvalidValue;
 }
 

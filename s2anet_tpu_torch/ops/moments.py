@@ -20,22 +20,25 @@ and the BN layer built on them, in the order it runs:
 
 Each runs its plain version for a CPU tensor and a CUDA kernel of
 ``csrc/bn_moments.cu`` for a CUDA tensor: the sums and their finishing
-step are one entry point (``MOMENTS``, ``PAIR``), the elementwise passes
-two more (``APPLY``, ``DX``). The kernels read their inputs in place, so
-the CUDA wrappers raise on a tensor whose ``[..., C]`` view is not
-contiguous (an NCHW activation or gradient that is not channels-last): a
-hidden copy would double the bytes the kernels exist to save.
+step are one launch (``MOMENTS``, ``PAIR``; grid from :func:`sums_plan`),
+the elementwise passes two more (``APPLY``, ``DX``). The kernels read their
+inputs in place, so the CUDA wrappers raise on a tensor whose ``[..., C]``
+view is not contiguous (an NCHW activation or gradient that is not
+channels-last): a hidden copy would double the bytes the kernels exist to
+save.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from .._ext import F, I, P, Kernel
+from .._ext import F, I, P, Kernel, library
 
 MOMENTS = Kernel("bn_moments", "s2a_channel_moments",
-                 [P, P, P, I, I, I, I, P, P, P, P, F, F, F, P])
-PAIR = Kernel("bn_moments", "s2a_grad_channel_sums", [P, P, P, P, I, I, I, I, P, P, P])
+                 [P, P, P, P, I, I, I, I, P, P, P, P, F, F, F, P])
+PAIR = Kernel("bn_moments", "s2a_grad_channel_sums", [P, P, P, P, P, I, I, I, I, P, P, P])
 APPLY = Kernel("bn_moments", "s2a_bn_apply", [P, P, P, P, P, I, I, I, P])
 DX = Kernel("bn_moments", "s2a_bn_dx", [P, P, P, P, P, P, P, I, I, I, P])
 
@@ -103,15 +106,39 @@ def bn_dx_plain(g, x, mean, mul, a, b):
 # ---------------------------------------------------------------- CUDA
 
 
-def chunks(rows: int, c: int, dtype: torch.dtype) -> int:
-    """Row chunks of the sums' first pass: about 8 blocks of 256 threads
-    per SM of an H100 (132 SMs), each thread at least 4 rows."""
-    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
-    nvec = c // vec
+CLUSTER = 8  # blocks per cluster of the sums kernel, along the rows
+TICKET_SLOTS = 1024  # ticket counters per device: the channel groups a launch may have
+
+
+def sums_rows(pair: bool) -> int:
+    """Rows in flight per thread of the sums kernel (``R`` in
+    ``csrc/bn_moments.cu::channel_sums``): two inputs in the pair kernel."""
+    return 2 if pair else 4
+
+
+def sums_plan(rows: int, c: int, dtype: torch.dtype, wave: int, pair: bool = False):
+    """The sums kernel's grid over ``[rows, c]``: ``(chunks, groups)``.
+    Blocks of 256 threads walk the 16-byte channel vectors (up to 32 a
+    block: ``groups`` blocks across the channels) and the rows in tiles of
+    :func:`sums_rows` rows a thread; tile ``t`` falls to block ``t %
+    chunks``. ``chunks x groups`` blocks fill at most one resident wave of
+    ``wave`` blocks, chunks come in whole clusters of :data:`CLUSTER`, and
+    every cluster has a tile."""
+    nvec = c // (8 if dtype == torch.bfloat16 else 4)
     tx = min(nvec, 32)
-    ty = 256 // tx
-    blocks_y = -(-nvec // tx)
-    return max(1, min(-(-1056 // blocks_y), -(-rows // (4 * ty))))
+    groups = -(-nvec // tx)
+    fill = max(1, wave // groups // CLUSTER) * CLUSTER
+    tiles = max(1, _ceil(rows, sums_rows(pair) * (256 // tx)))
+    return min(fill, _ceil(tiles, CLUSTER) * CLUSTER), groups
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def workspace_floats(chunks: int, c: int) -> int:
+    """float32 scratch of a sums launch: one ``[2, c]`` partial a cluster."""
+    return chunks // CLUSTER * 2 * c
 
 
 def _rows_c(name: str, *ts: torch.Tensor):
@@ -147,29 +174,69 @@ def _stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def _sums_buffer(rows: int, c: int, x: torch.Tensor, k: int):
-    """One float32 ``[k + 2*chunks, C]`` allocation for a sums launch: its
-    first ``k`` rows are the outputs, the rest the ``[chunks, 2, C]``
-    workspace. Returns ``(buffer, outputs' pointer, workspace's pointer,
-    chunks)``."""
-    n = chunks(rows, c, x.dtype)
-    buf = torch.empty(k + 2 * n, c, dtype=torch.float32, device=x.device)
+_WAVE: dict = {}     # (device, dtype, pair) -> blocks of one resident wave
+_TICKETS: dict = {}  # device -> uint32 tickets, zero between launches
+_PLANS: dict = {}    # (device, dtype, pair, rows, c) -> (chunks, workspace rows, tickets)
+
+
+def _wave(x: torch.Tensor, pair: bool) -> int:
+    key = (x.device.index, x.dtype, pair)
+    if key not in _WAVE:
+        lib = library("bn_moments")
+        lib.s2a_sums_wave.argtypes = [I, I, P]
+        lib.s2a_sums_wave.restype = ctypes.c_int
+        n = ctypes.c_int(0)
+        with torch.cuda.device(x.device):
+            rc = lib.s2a_sums_wave(_DTYPE_CODE[x.dtype], int(pair), ctypes.byref(n))
+        if rc != 0 or n.value < CLUSTER:
+            raise RuntimeError(f"s2a_sums_wave failed: cudaError {rc}, {n.value} blocks")
+        _WAVE[key] = n.value
+    return _WAVE[key]
+
+
+def _tickets(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The device's ticket counters, one per channel group. Every launch
+    leaves them zero, so one buffer, allocated once, serves all calls and
+    CUDA-graph replays on the device; sums launches on one device must not
+    run concurrently (on two streams at once)."""
+    if groups > TICKET_SLOTS:
+        raise ValueError(f"the sums kernel takes at most {TICKET_SLOTS} channel groups")
+    t = _TICKETS.get(x.device.index)
+    if t is None:
+        t = _TICKETS[x.device.index] = torch.zeros(TICKET_SLOTS, dtype=torch.int32,
+                                                   device=x.device)
+    return t
+
+
+def _sums_buffer(rows: int, c: int, x: torch.Tensor, k: int, pair: bool):
+    """One float32 ``[k + 2*chunks/8, C]`` allocation for a sums launch: its
+    first ``k`` rows are the outputs, the rest the workspace. Returns
+    ``(buffer, outputs' pointer, workspace's pointer, tickets' pointer,
+    chunks)``. The plan is worked out once per shape."""
+    key = (x.device.index, x.dtype, pair, rows, c)
+    plan = _PLANS.get(key)
+    if plan is None:
+        chunks, groups = sums_plan(rows, c, x.dtype, _wave(x, pair), pair)
+        plan = _PLANS[key] = (chunks, workspace_floats(chunks, c) // c,
+                              _tickets(x, groups).data_ptr())
+    chunks, ws_rows, tickets = plan
+    buf = torch.empty(k + ws_rows, c, dtype=torch.float32, device=x.device)
     ptr = buf.data_ptr()
-    return buf, ptr, ptr + 4 * k * c, n
+    return buf, ptr, ptr + 4 * k * c, tickets, chunks
 
 
 def channel_moments_cuda(x: torch.Tensor):
     rows, c = _rows_c("channel_moments_cuda", x)
-    buf, po, pw, n = _sums_buffer(rows, c, x, 2)
-    MOMENTS(x.data_ptr(), po, pw, rows, c, n, _DTYPE_CODE[x.dtype],
+    buf, po, pw, pt, n = _sums_buffer(rows, c, x, 2, False)
+    MOMENTS(x.data_ptr(), po, pw, pt, rows, c, n, _DTYPE_CODE[x.dtype],
             None, None, None, None, 0.0, 0.0, 0.0, _stream(x))
     return buf[:2].unbind(0)
 
 
 def grad_channel_sums_cuda(g: torch.Tensor, x: torch.Tensor):
     rows, c = _rows_c("grad_channel_sums_cuda", g, x)
-    buf, po, pw, n = _sums_buffer(rows, c, x, 2)
-    PAIR(g.data_ptr(), x.data_ptr(), po, pw, rows, c, n, _DTYPE_CODE[x.dtype],
+    buf, po, pw, pt, n = _sums_buffer(rows, c, x, 2, True)
+    PAIR(g.data_ptr(), x.data_ptr(), po, pw, pt, rows, c, n, _DTYPE_CODE[x.dtype],
          None, None, _stream(x))
     return buf[:2].unbind(0)
 
@@ -182,8 +249,8 @@ def bn_stats_cuda(x, weight, running_mean, running_var, tracked, eps: float,
             or tracked.numel() != 1):
         raise ValueError("bn_stats_cuda: the batch count must be one int64 on the "
                          "input's device")
-    buf, po, pw, n = _sums_buffer(rows, c, x, 6)
-    MOMENTS(x.data_ptr(), po, pw, rows, c, n, _DTYPE_CODE[x.dtype], weight.data_ptr(),
+    buf, po, pw, pt, n = _sums_buffer(rows, c, x, 6, False)
+    MOMENTS(x.data_ptr(), po, pw, pt, rows, c, n, _DTYPE_CODE[x.dtype], weight.data_ptr(),
             running_mean.data_ptr(), running_var.data_ptr(), tracked.data_ptr(), eps,
             keep, 1 - keep, _stream(x))
     return buf[2:6].unbind(0)
@@ -201,8 +268,8 @@ def bn_apply_cuda(x, mean, mul, bias):
 def bn_grad_cuda(g, x, mean, rstd):
     rows, c = _rows_c("bn_grad_cuda", g, x)
     _channel_vectors("bn_grad_cuda", c, x, mean, rstd)
-    buf, po, pw, n = _sums_buffer(rows, c, x, 5)
-    PAIR(g.data_ptr(), x.data_ptr(), po, pw, rows, c, n, _DTYPE_CODE[x.dtype],
+    buf, po, pw, pt, n = _sums_buffer(rows, c, x, 5, True)
+    PAIR(g.data_ptr(), x.data_ptr(), po, pw, pt, rows, c, n, _DTYPE_CODE[x.dtype],
          mean.data_ptr(), rstd.data_ptr(), _stream(x))
     dbeta, _, dgamma, a, b = buf[:5].unbind(0)
     return dgamma, dbeta, a, b

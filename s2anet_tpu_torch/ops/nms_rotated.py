@@ -74,23 +74,42 @@ def sweep_plain(over: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     return a
 
 
+def _mask_inputs(boxes: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor):
+    if not (boxes.is_cuda and labels.is_cuda and valid.is_cuda):
+        raise ValueError("the NMS kernels take CUDA tensors")
+    b, k = valid.shape
+    if boxes.shape != (b, k, 5) or labels.shape != (b, k):
+        raise ValueError("NMS kernels: boxes [B,K,5], labels/valid [B,K]")
+    return (boxes.float().contiguous(), labels.to(torch.int32).contiguous(),
+            valid.to(torch.bool).contiguous())
+
+
+def _mask(bx, lab, ok, iou_thr: float, stream: int) -> torch.Tensor:
+    b, k = ok.shape
+    mask = torch.empty(b, k, (k + 63) // 64, dtype=torch.int64, device=bx.device)
+    NMS_MASK(bx.data_ptr(), lab.data_ptr(), ok.data_ptr(), float(iou_thr),
+             mask.data_ptr(), b, k, stream)
+    return mask
+
+
+def nms_mask_cuda(boxes: torch.Tensor, labels: torch.Tensor,
+                  valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
+    """The suppression bitmask ``[B, K, ceil(K/64)]`` (int64 words; bit
+    ``j % 64`` of word ``j // 64`` of row ``i`` as in :func:`overlap_plain`).
+    Only the words of valid rows, from the row's own word on, are certain
+    to be written: the sweep uses no other."""
+    bx, lab, ok = _mask_inputs(boxes, labels, valid)
+    return _mask(bx, lab, ok, iou_thr, torch.cuda.current_stream(bx.device).cuda_stream)
+
+
 def nms_keep_cuda(boxes: torch.Tensor, labels: torch.Tensor,
                   valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
     """The two CUDA kernels: suppression bitmask, then one sweep per image."""
-    if not (boxes.is_cuda and labels.is_cuda and valid.is_cuda):
-        raise ValueError("nms_keep_cuda takes CUDA tensors")
-    b, k = valid.shape
-    if boxes.shape != (b, k, 5) or labels.shape != (b, k):
-        raise ValueError("nms_keep_cuda: boxes [B,K,5], labels/valid [B,K]")
-    bx = boxes.float().contiguous()
-    lab = labels.to(torch.int32).contiguous()
-    ok = valid.to(torch.bool).contiguous()
-    col_blocks = (k + 63) // 64
-    mask = torch.empty(b, k, col_blocks, dtype=torch.int64, device=bx.device)
-    keep = torch.empty(b, k, dtype=torch.bool, device=bx.device)
+    bx, lab, ok = _mask_inputs(boxes, labels, valid)
+    b, k = ok.shape
     stream = torch.cuda.current_stream(bx.device).cuda_stream
-    NMS_MASK(bx.data_ptr(), lab.data_ptr(), ok.data_ptr(), float(iou_thr),
-             mask.data_ptr(), b, k, stream)
+    mask = _mask(bx, lab, ok, iou_thr, stream)
+    keep = torch.empty(b, k, dtype=torch.bool, device=bx.device)
     NMS_SWEEP(mask.data_ptr(), ok.data_ptr(), keep.data_ptr(), b, k, stream)
     return keep
 

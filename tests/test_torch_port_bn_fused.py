@@ -81,7 +81,9 @@ def _assert_close(got, want, name):
 def test_plain_stats_and_apply_match_jax(shape, dtype):
     x, g, jx, jg, v = _case(shape, dtype, 1)
     ref = _jax_ref(jx, jg, v)
-    rm, rv = torch.from_numpy(v["running_mean"]), torch.from_numpy(v["running_var"])
+    # copies: the update below is in place, and the JAX reference, dispatched
+    # asynchronously, may read v's arrays after it
+    rm, rv = (torch.from_numpy(v[k].copy()) for k in ("running_mean", "running_var"))
     tracked = torch.tensor(0)
     mean, var, rstd, mul = mo.bn_stats_plain(x, torch.from_numpy(v["weight"]), rm, rv,
                                              tracked, EPS, KEEP)

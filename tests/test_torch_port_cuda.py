@@ -105,6 +105,87 @@ def test_nms_kernels_match_plain(dev, gen):
     assert got.sum() < valid.sum()
 
 
+def _candidates(gen, dev, b, k, valid_kind, one_label):
+    """Score-sorted-looking NMS candidates crowded around a few centres."""
+    ctr = torch.rand(b, 12, 2, generator=gen, device=dev) * 400
+    pick = torch.randint(0, 12, (b, k), generator=gen, device=dev)
+    xy = torch.gather(ctr, 1, pick[..., None].expand(-1, -1, 2))
+    xy = xy + torch.randn(b, k, 2, generator=gen, device=dev) * 6
+    wh = torch.rand(b, k, 2, generator=gen, device=dev) * 40 + 8
+    ang = torch.rand(b, k, 1, generator=gen, device=dev) * 1.6 - 0.8
+    boxes = torch.cat([xy, wh, ang], -1)
+    labels = (torch.zeros(b, k, dtype=torch.int64, device=dev) if one_label
+              else torch.randint(0, 15, (b, k), generator=gen, device=dev))
+    idx = torch.arange(k, device=dev)[None]
+    if valid_kind == "prefix":
+        valid = idx < torch.tensor([[k], [max(1, (2 * k) // 3)]], device=dev)[:b]
+    elif valid_kind == "scattered":  # not a prefix: the tiles' ballot decides
+        valid = torch.rand(b, k, generator=gen, device=dev) < 0.6
+        valid[:, -1] = True
+    else:
+        valid = torch.zeros(b, k, dtype=torch.bool, device=dev)
+    return boxes, labels, valid
+
+
+def _assert_mask_and_keep_equal_plain(boxes, labels, valid, thr):
+    """The mask kernel's bits of valid rows, from each row's own word on
+    (the words the sweep reads), and the keeps equal the plain versions."""
+    b, k = valid.shape
+    n_mask, n_sweep = nms.NMS_MASK.launches, nms.NMS_SWEEP.launches
+    mask = nms.nms_mask_cuda(boxes, labels, valid, thr)
+    keep = nms.nms_keep(boxes, labels, valid, thr)
+    torch.cuda.synchronize()
+    assert (nms.NMS_MASK.launches, nms.NMS_SWEEP.launches) == (n_mask + 2, n_sweep + 1)
+    bits = ((mask[..., None] >> torch.arange(64, device=mask.device)) & 1).bool()
+    bits = bits.reshape(b, k, -1)[:, :, :k]
+    idx = torch.arange(k, device=mask.device)
+    read = (idx[None, :] // 64) >= (idx[:, None] // 64)
+    over = nms.overlap_plain(boxes, labels, valid, thr, k)
+    assert torch.equal((bits & read)[valid], over[valid])
+    assert torch.equal(keep, nms.nms_keep_plain(boxes, labels, valid, thr))
+    return int(over.sum())
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 1000, 4096])
+@pytest.mark.parametrize("valid_kind,one_label", [("prefix", False), ("scattered", True)])
+def test_nms_mask_bits_and_keeps_equal_plain(dev, gen, k, valid_kind, one_label):
+    boxes, labels, valid = _candidates(gen, dev, 2, k, valid_kind, one_label)
+    pairs = _assert_mask_and_keep_equal_plain(boxes, labels, valid, 0.5)
+    assert k < 1000 or pairs > 0
+
+
+@pytest.mark.parametrize("k", [64, 1000])
+def test_nms_mask_all_candidates_invalid(dev, gen, k):
+    boxes, labels, valid = _candidates(gen, dev, 2, k, "none", False)
+    _assert_mask_and_keep_equal_plain(boxes, labels, valid, 0.5)
+
+
+@pytest.mark.parametrize("thr", [0.0, -0.1, 0.3])
+def test_nms_mask_threshold_edges(dev, gen, thr):
+    """At a negative threshold the pairs the cheap tests reject (IoU 0)
+    suppress too, as in the plain version."""
+    boxes, labels, valid = _candidates(gen, dev, 2, 130, "scattered", False)
+    _assert_mask_and_keep_equal_plain(boxes, labels, valid, thr)
+
+
+def test_nms_mask_degenerate_boxes(dev):
+    """Identical, grid-touching, shared-edge, contained and zero-size boxes
+    (tests/test_pallas_iou.py's cases), all one label."""
+    s = 8.0
+    rows = [[x * s, y * s, 4 * s, 4 * s, 0.0] for x in range(4) for y in range(4)]
+    rows += [[100.0, 100.0, 80.0, 40.0, 0.0], [100.0, 130.0, 60.0, 20.0, 0.0],
+             [50.0, 50.0, 100.0, 40.0, 0.0], [80.0, 50.0, 60.0, 40.0, 0.0],
+             [10.0, 10.0, 50.0, 30.0, 0.3], [10.0, 10.0, 20.0, 10.0, 0.3],
+             [10.0, 10.0, 50.0, 30.0, 0.3]]
+    rows += [[0.0] * 5] * 3
+    boxes = torch.tensor(rows, device=dev)[None].repeat(1, 3, 1)
+    k = boxes.shape[1]
+    labels = torch.zeros(1, k, dtype=torch.int64, device=dev)
+    for thr in (0.0, 0.5):
+        _assert_mask_and_keep_equal_plain(boxes, labels,
+                                          torch.ones(1, k, dtype=torch.bool, device=dev), thr)
+
+
 def test_small_predictor_kernel_path(dev):
     """R-18 at 256x256: the serving path runs both kernels and gives finite
     outputs of the configured shape."""
@@ -225,6 +306,99 @@ def test_bn_finishing_matches_plain(dev, gen, shape, dtype):
     for a, b in zip(got + (rm, rv) + got_g, want + (rm_p, rv_p) + want_g):
         assert a.dtype == torch.float32 and a.shape == (shape[-1],)
         assert _rel_to_max(a, b) <= 1e-6
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 3, 1, 8), torch.bfloat16), ((3, 1, 5, 4), torch.float32),  # one vector a row
+    ((1, 1, 1, 256), torch.bfloat16), ((1, 1, 1, 4), torch.float32),  # rows = 1
+    ((8, 512, 512, 64), torch.bfloat16),    # R-50 1024^2 batch 8: the stem
+    ((8, 256, 256, 256), torch.bfloat16),   # layer 1
+    ((8, 32, 32, 2048), torch.bfloat16),    # layer 4
+    ((8, 32, 32, 2048), torch.float32),
+])
+def test_bn_sums_one_launch_match_plain(dev, gen, shape, dtype):
+    """The sums kernels at the odd and the R-50 shapes: one launch a call,
+    sums within 1e-5 of the sums of magnitudes, the finishing within 1e-6 of
+    the plain finishing on the kernel's own sums."""
+    x, g, weight, _, (rm, rv) = _bn_case(gen, dev, shape, dtype)
+    c, n = shape[-1], x.numel() // shape[-1]
+    rm_p, rv_p = rm.clone(), rv.clone()
+    tracked, tracked_p = (torch.tensor(0, device=dev) for _ in range(2))
+    n_m, n_p = mo.MOMENTS.launches, mo.PAIR.launches
+    stats = mo.bn_stats_cuda(x, weight, rm, rv, tracked, 1e-5, 0.9)
+    grad = mo.bn_grad_cuda(g, x, stats[0], stats[2])
+    sums = mo.channel_moments_cuda(x) + mo.grad_channel_sums_cuda(g, x)
+    torch.cuda.synchronize()
+    assert (mo.MOMENTS.launches, mo.PAIR.launches) == (n_m + 2, n_p + 2)
+    xf, gf = x.float().reshape(-1, c), g.float().reshape(-1, c)
+    want = (xf.sum(0), (xf * xf).sum(0), gf.sum(0), (gf * xf).sum(0))
+    mags = (xf.abs().sum(0), (xf * xf).sum(0), gf.abs().sum(0), (gf * xf).abs().sum(0))
+    for a, b, m in zip(sums, want, mags):
+        assert ((a - b).abs() <= 1e-5 * m).all()
+    ref = mo.stats_from_sums(sums[0], sums[1], n, weight, rm_p, rv_p, tracked_p, 1e-5, 0.9)
+    ref_g = mo.grad_from_sums(sums[2], sums[3], n, stats[0], stats[2])
+    for a, b in zip(stats + (rm, rv) + grad, ref + (rm_p, rv_p) + ref_g):
+        assert a.shape == (c,) and _rel_to_max(a, b) <= 1e-6
+    assert int(tracked) == int(tracked_p) == 1
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 512, 64), (8, 32, 32, 2048), (3, 5, 7, 24)])
+def test_bn_sums_equal_over_runs(dev, gen, shape):
+    """The order of every addition is fixed, whichever cluster finishes
+    last: three runs agree bit for bit."""
+    x, g, weight, _, _ = _bn_case(gen, dev, shape, torch.bfloat16)
+    runs = []
+    for _ in range(3):
+        run = (torch.zeros_like(weight), torch.ones_like(weight), torch.tensor(0, device=dev))
+        stats = mo.bn_stats_cuda(x, weight, *run, 1e-5, 0.9)
+        runs.append(stats + mo.bn_grad_cuda(g, x, stats[0], stats[2]) + run[:2])
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+def test_bn_sums_tickets_reset_themselves(dev, gen):
+    """100 calls back to back, then 10 replays of a captured CUDA graph: the
+    count and the running statistics follow the plain updates exactly, so
+    every launch left its tickets at zero."""
+    x, g, weight, _, (rm, rv) = _bn_case(gen, dev, (4, 16, 16, 256), torch.bfloat16)
+    n = x.numel() // 256
+    rm_p, rv_p = rm.clone(), rv.clone()
+    tracked, tracked_p = (torch.tensor(0, device=dev) for _ in range(2))
+    s, q = mo.channel_moments_cuda(x)
+    sg, sgx = mo.grad_channel_sums_cuda(g, x)
+    for _ in range(100):
+        stats = mo.bn_stats_cuda(x, weight, rm, rv, tracked, 1e-5, 0.9)
+        grad = mo.bn_grad_cuda(g, x, stats[0], stats[2])
+    want = mo.stats_from_sums(s, q, n, weight, rm.clone(), rv.clone(), tracked.clone(),
+                              1e-5, 0.9)
+    for _ in range(100):
+        mo.stats_from_sums(s, q, n, weight, rm_p, rv_p, tracked_p, 1e-5, 0.9)
+    torch.cuda.synchronize()
+    assert int(tracked) == int(tracked_p) == 100
+    assert torch.equal(rm, rm_p) and torch.equal(rv, rv_p)
+    assert all(torch.equal(a, b) for a, b in zip(stats, want))
+    assert all(torch.equal(a, b) for a, b in zip(
+        grad, mo.grad_from_sums(sg, sgx, n, stats[0], stats[2])))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        mo.bn_grad_cuda(g, x, *mo.bn_stats_cuda(x, weight, rm, rv, tracked, 1e-5, 0.9)[0:3:2])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stats_g = mo.bn_stats_cuda(x, weight, rm, rv, tracked, 1e-5, 0.9)
+        grad_g = mo.bn_grad_cuda(g, x, stats_g[0], stats_g[2])
+    for _ in range(10):
+        graph.replay()
+    torch.cuda.synchronize()
+    for _ in range(11):
+        mo.stats_from_sums(s, q, n, weight, rm_p, rv_p, tracked_p, 1e-5, 0.9)
+    assert int(tracked) == int(tracked_p) == 111
+    assert torch.equal(rm, rm_p) and torch.equal(rv, rv_p)
+    assert all(torch.equal(a, b) for a, b in zip(stats_g, want))
+    assert all(torch.equal(a, b) for a, b in zip(grad_g, grad))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
