@@ -13,10 +13,12 @@ last line:
                and in f32 (TF32 off), and 1x1 / 2x2 / odd maps with offsets
                that leave the image
   4. kernel 2  rotated IoU vs the plain version (random and degenerate
-               boxes); the NMS bitmask (the bits of valid rows the sweep
+               boxes, unbatched and batched with shared and per-image
+               boxes1); the NMS bitmask (the bits of valid rows the sweep
                reads) and keep masks vs the plain NMS on clustered
-               candidates, with valid flags as a prefix and not, and on the
-               degenerate boxes
+               candidates, with valid flags as a prefix and not, with none
+               valid, and on the degenerate boxes; the top-k order on the
+               card (bf16-tied scores) equal to the CPU's (lax.top_k's)
   5. serving   python -m s2anet_tpu_torch.predict on 8 synthetic 1024x1024
                chips (R-50, 15 classes, bf16, folded BN, seeded weights),
                launch counts of every kernel; outputs finite with the right
@@ -28,7 +30,11 @@ last line:
                0.05 and 0.005 (where the NMS has 4096 valid candidates per
                image), peak device memory, each kernel against its plain
                version (CUDA events), the NMS mask also on 8 x 4096
-               clustered candidates with its own bound,
+               clustered candidates with its own bound, the NMS sweep also
+               with no valid candidate and the rounds its rule takes (a
+               numpy model), the decode + select of a serving batch at
+               score_thr 0.005 with torch.topk (before the tie fix) and the
+               stable sort, in turns, with the launches of each,
                the AlignConv forward per level P3-P7 (TFLOP/s, gathered
                bytes/s, and cuDNN's bf16 3x3 convolution of the same shape
                as a yardstick, dense_conv_ms), and a profiler table of one
@@ -61,8 +67,10 @@ last line:
                clamp 6.0, 3 warm-up and 5 timed steps: finite losses,
                ms/step, img/s, peak memory, launches per step of every
                kernel (AlignConv fwd/bwd 5, BN moments/pair/apply/dx 53,
-               IoU > 0), and a profiler table of one step with the device's
-               idle share
+               IoU 2), and a profiler table of one step with the device's
+               idle share; then the IoU kernel at the assignment shape, one
+               call for the batch of 8 (shared anchors as the FAM stage,
+               per-image anchors as the ODM stage), against its bound
  10. step vs plain  one R-18 256^2 batch-2 f32 train step (TF32 off, cuDNN
                deterministic), same weights and batch: the kernel path's
                loss items within 1e-4 (relative) of the plain path's; on
@@ -261,6 +269,36 @@ def mask_bound(torch, boxes, labels, valid):
     return bound(b * k * (5 * 4 + 4 + 1) + 8 * words, ops, F32_FLOP_S)
 
 
+def sweep_rounds(over, valid):
+    """``(rounds, most in a block, blocks)`` of the sweep kernel's round rule
+    on candidates with suppression matrix ``over [B, n, n]``, replayed in
+    numpy (a model of the rule; the kernel reports no count): per 64-row
+    block, rounds in which a row becomes alive once every unblocked row that
+    suppresses it is dead, dead once one is alive, until no row is open."""
+    over = over.cpu().numpy()
+    valid = valid.cpu().numpy()
+    total = worst = blocks = 0
+    for b in range(over.shape[0]):
+        removed = ~valid[b]
+        for c0 in range(0, over.shape[1], 64):
+            rows = slice(c0, c0 + 64)
+            blocked = removed[rows].copy()
+            sup = over[b][rows, rows] & ~blocked[:, None]  # [i, j]: i suppresses j
+            alive = np.zeros(len(blocked), bool)
+            dead, open_ = blocked.copy(), ~blocked
+            r = 0
+            while open_.any():
+                a = open_ & ~(sup & ~dead[:, None]).any(0)
+                d = open_ & (sup & alive[:, None]).any(0)
+                alive |= a
+                dead |= d
+                open_ &= ~(a | d)
+                r += 1
+            total, worst, blocks = total + r, max(worst, r), blocks + (r > 0)
+            removed = removed | over[b][rows][alive].any(0)
+    return total, worst, blocks
+
+
 def short_name(key: str) -> str:
     """A kernel's name without its arguments and namespace."""
     return key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
@@ -351,6 +389,20 @@ def kernel_split(torch, fn, runs: int = 3) -> dict:
         if t > 0:
             out[e.key] = out.get(e.key, 0.0) + t / 1000 / runs
     return out
+
+
+def device_launches(torch, fn) -> int:
+    """Kernels, copies and fills that one call of ``fn`` puts on the device
+    (profiler; one warm-up call first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
 
 
 def phase_deform_bwd(torch, dev, gen, levels):
@@ -680,7 +732,7 @@ def phase_train(torch, dev, card, out_dir):
     check(per["s2a_deform_conv2d_fwd"] == 5 and per["s2a_deform_conv2d_bwd"] == 5
           and per["s2a_channel_moments"] == 53 and per["s2a_grad_channel_sums"] == 53
           and per["s2a_bn_apply"] == 53 and per["s2a_bn_dx"] == 53
-          and per["s2a_box_iou_rotated"] > 0 and per["s2a_nms_rotated_mask"] == 0,
+          and per["s2a_box_iou_rotated"] == 2 and per["s2a_nms_rotated_mask"] == 0,
           f"launches per step {per}")
 
     cfg, model, optimizer, ema, batches = train_cli.setup(train_cli.parse_opt(args))
@@ -727,10 +779,10 @@ def phase_train(torch, dev, card, out_dir):
 
 
 def batches_first_gt(train_cli, args):
-    """The first image's gt rows (64 slots) of the training run's batches."""
+    """The gt rows ``[B, 64, 5]`` of the training run's first batch."""
     opt = train_cli.parse_opt(args)
     b = train_cli.synthetic_batches(1, opt.batch_size, opt.img_size, opt.seed)[0]
-    return b["gt_boxes"][0]
+    return b["gt_boxes"]
 
 
 def phase_step_vs_plain(torch, dev):
@@ -858,6 +910,7 @@ def main(argv=None) -> int:
     from s2anet_tpu_torch.ops import deform_conv as dc
     from s2anet_tpu_torch.ops import iou_rotated as iou
     from s2anet_tpu_torch.ops import nms_rotated as nms
+    from s2anet_tpu_torch.ops import topk
 
     dev = torch.device("cuda", 0)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -953,6 +1006,27 @@ def main(argv=None) -> int:
           and (got[:, real:] == 0).all().item(),
           f"degenerate geometries: max |kernel - plain| = {derr:.3g}, diag = 1")
     iou_err = max(err, derr)
+    # batched, one launch: shared boxes1 (batch stride 0) and per-image
+    # boxes1, 1000 rows (not a multiple of the 64-row tile), 130 columns
+    # (three passes) with a padded zero slot; the degenerate set as a batch
+    rows1 = b1[:1000]
+    per_img = rows1[None] + torch.randn(3, 1000, 5, generator=gen, device=dev) * torch.tensor(
+        [4.0, 4.0, 0.0, 0.0, 0.05], device=dev)
+    cols2 = b2[None, :130].repeat(3, 1, 1) + torch.randn(3, 130, 5, generator=gen, device=dev)
+    cols2[:, :, 2:4] = cols2[:, :, 2:4].abs() + 1
+    cols2[:, -1] = 0.0
+    for name, a, g in (("shared boxes1 [1000, 5] x [3, 130, 5]", rows1, cols2),
+                       ("per-image boxes1 [3, 1000, 5] x [3, 130, 5]", per_img, cols2),
+                       ("degenerate [25, 5] x [3, 25, 5]", deg, deg[None].repeat(3, 1, 1))):
+        before = iou.BOX_IOU.launches
+        got = iou.box_iou_rotated_cuda(a, g)
+        torch.cuda.synchronize()
+        berr = (got - iou.box_iou_rotated_plain(a, g)).abs().max().item()
+        check(berr <= 1e-6 and iou.BOX_IOU.launches == before + 1
+              and (got[:, :, -1] == 0).all().item(),
+              f"batched IoU, one launch, {name}: max |kernel - plain| = {berr:.3g} (atol "
+              f"1e-6), {(got > 0).sum().item()} overlapping pairs")
+        iou_err = max(iou_err, berr)
 
     clustered = clustered_candidates(torch, gen, BATCH, 4096, dev)
     # the same boxes with valid flags that are not a prefix
@@ -960,8 +1034,10 @@ def main(argv=None) -> int:
         clustered[2].shape, generator=gen, device=dev) < 0.7),)
     deg_cand = (deg[None], torch.zeros(1, deg.shape[0], dtype=torch.int64, device=dev),
                 torch.ones(1, deg.shape[0], dtype=torch.bool, device=dev))
+    none_valid = clustered[:2] + (torch.zeros_like(clustered[2]),)
     for name, (boxes, labels, valid) in (("8 x 4096 clustered", clustered),
                                          ("8 x 4096 clustered, valid not a prefix", scattered),
+                                         ("8 x 4096 clustered, none valid", none_valid),
                                          (f"{deg.shape[0]} degenerate boxes", deg_cand)):
         diff, pairs = mask_bits_differing(torch, nms, boxes, labels, valid, 0.5)
         keep_k = nms.nms_keep_cuda(boxes, labels, valid, 0.5)
@@ -972,6 +1048,17 @@ def main(argv=None) -> int:
               f"({pairs} suppressing pairs); keeps identical ({keep_k.sum().item()} kept of "
               f"{valid.sum().item()} valid)")
     boxes, labels, valid = clustered
+    # ties: sigmoids of bf16 logits, as the serving scores; the card's top-k
+    # order is the CPU's, which is lax.top_k's (tests/test_torch_port_topk.py)
+    tied = torch.sigmoid(torch.randn(BATCH, 80160, generator=gen, device=dev).bfloat16().float())
+    tied = torch.where(tied > 0.3, tied, -1.0)
+    tv, ti = topk.top_k(tied, 4096)
+    cv_, ci = topk.top_k(tied.cpu(), 4096)
+    moved = (tied.topk(4096, dim=1)[1] != ti).sum().item()
+    check(torch.equal(ti.cpu(), ci) and torch.equal(tv.cpu(), cv_),
+          f"top_k on {BATCH} x 80160 bf16-tied scores: the card's order equals the CPU's "
+          f"({len(torch.unique(tv[0]))} distinct values in image 0's top 4096; torch.topk "
+          f"puts {moved} of {ti.numel()} indices elsewhere)")
 
     say("== 5. serving path")
     cfg = ModelConfig()
@@ -1150,10 +1237,13 @@ def main(argv=None) -> int:
 
     keep_buf = torch.empty(BATCH, k, dtype=torch.bool, device=dev)
 
-    def run_sweep():
-        nms.NMS_SWEEP(mask.data_ptr(), cvc.data_ptr(), keep_buf.data_ptr(), BATCH, k, stream)
+    no_valid = torch.zeros_like(cvc)
+
+    def run_sweep(ok=cvc):
+        nms.NMS_SWEEP(mask.data_ptr(), ok.data_ptr(), keep_buf.data_ptr(), BATCH, k, stream)
 
     t_mk, s_mk = cuda_ms(torch, run_mask, 10)
+    t_s0, s_s0 = cuda_ms(torch, lambda: run_sweep(no_valid), 10)
     t_sk, s_sk = cuda_ms(torch, run_sweep, 10)
     t_mp, _ = cuda_ms(torch, lambda: nms.overlap_plain(cb, cl, cv, cfg.nms_iou_thr, n), 1)
     t_sp, _ = cuda_ms(torch, lambda: nms.sweep_plain(over, cv[:, :n]), 1)
@@ -1168,6 +1258,51 @@ def main(argv=None) -> int:
         f"{m_bound[0]:.4f} ms ({m_bound[1]}): {m_bound[0] / t_mk:.1%} of the bound; sweep "
         f"kernel {t_sk:.3f} ms (spread {s_sk:.1%}) vs plain sweep {t_sp:.3f} ms, bound "
         f"{sweep_bound[0]:.4f} ms ({sweep_bound[1]})")
+    rounds, worst, blocks = sweep_rounds(over, cv[:, :n])
+    say(f"   NMS sweep with no valid candidate: {t_s0:.4f} ms (spread {s_s0:.1%}); the round "
+        f"rule replayed in numpy on this mask (a model, not a count read from the kernel): "
+        f"{rounds} rounds over {blocks} blocks of 64 candidates, at most {worst} in a block, "
+        f"against 64 dependent steps a block")
+    # part A's cost: decode + select of a serving batch at score_thr 0.005
+    # with each top-k in turns (torch.topk: the order before the tie fix)
+    out_ds = pred.forward(x)
+    variants = {"torch.topk (before)": lambda t, kk: t.topk(kk, dim=-1),
+                "stable sort (top_k, the port's)": topk.top_k}
+
+    def decode_select(fn):
+        with mock.patch.object(head_mod, "top_k", fn), mock.patch.object(nms, "top_k", fn):
+            bx, sc = decode_levels(out_ds, cfg.max_before_nms_per_level)
+            top_s, _, _, _ = nms.select_candidates(bx, sc, 0.005, cfg.pre_nms_cap)
+            return nms.top_k(top_s, cfg.max_per_img)
+
+    ds_times = {name: [] for name in variants}
+    for fn in variants.values():
+        decode_select(fn)
+    for _ in range(REPEATS):
+        for name, fn in variants.items():
+            ds_times[name].append(loop_ms(torch, lambda fn=fn: decode_select(fn), 10))
+    ds_ms = {name: median_spread(ts) for name, ts in ds_times.items()}
+    ds_launches = {name: device_launches(torch, lambda fn=fn: decode_select(fn))
+                   for name, fn in variants.items()}
+    say("   decode + select of a serving batch at score_thr 0.005 (sigmoid, per-level "
+        "top-2000, decode, top-4096 candidates, top-2000 survivors), in turns: "
+        + "; ".join(f"{name} {ms:.3f} ms (spread {sp:.1%}), {ds_launches[name]} launches"
+                    for name, (ms, sp) in ds_ms.items()))
+    # and in the serving batch, end to end: both orders in turns, in this
+    # process, at both score thresholds
+    e2e = {(name, thr): [] for name in variants for thr in (cfg.score_thr, 0.005)}
+    for _ in range(REPEATS):
+        for (name, thr), ts in e2e.items():
+            with mock.patch.object(head_mod, "top_k", variants[name]), \
+                    mock.patch.object(nms, "top_k", variants[name]):
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    pred.predict(imgs, score_thr=thr)[0].sum().item()
+                ts.append((time.perf_counter() - t0) / 3 * 1000)
+    say("   serving batch wall with each top-k order, in turns (median of "
+        f"{REPEATS} x 3 batches): "
+        + "; ".join(f"{name} at score_thr {thr} {median_spread(ts)[0]:.2f} ms (spread "
+                    f"{median_spread(ts)[1]:.1%})" for (name, thr), ts in e2e.items()))
     # a crowded scene: the circle test rejects fewer pairs
     clu = nms._mask_inputs(*clustered)
     t_mc, s_mc = cuda_ms(torch, lambda: nms._mask(*clu, cfg.nms_iou_thr, stream), 10)
@@ -1218,24 +1353,40 @@ def main(argv=None) -> int:
     deform_bwd = phase_deform_bwd(torch, dev, gen, levels)
     del levels
     bn_rows = phase_moments(torch, dev, gen)
-    train_launches, train_summary, gt0 = phase_train(torch, dev, card, out_dir)
+    train_launches, train_summary, gt_all = phase_train(torch, dev, card, out_dir)
 
-    # the IoU kernel at the assignment's shape: the R-50 1024^2 anchors
-    # against one image's 64 gt slots
+    # the IoU kernel at the assignment's shape, one call for the batch as
+    # assign_labels makes it: the R-50 1024^2 anchors (shared, as the FAM
+    # stage passes them; and jittered per image, as the ODM stage's refined
+    # anchors) against the 64 gt slots of each of the 8 images
     anchors = torch.from_numpy(np.concatenate([
         grid_anchors((SIZE // st, SIZE // st), st) for st in cfg.strides])).to(dev)
-    gt_t = torch.from_numpy(gt0).to(dev)
-    got = iou.box_iou_rotated_cuda(anchors, gt_t)
-    torch.cuda.synchronize()
-    a_err = (got - iou.box_iou_rotated_plain(anchors, gt_t)).abs().max().item()
-    t_ik, _ = cuda_ms(torch, lambda: iou.box_iou_rotated_cuda(anchors, gt_t), 20)
-    t_ip, _ = cuda_ms(torch, lambda: iou.box_iou_rotated_plain(anchors, gt_t), 1)
-    a, g = anchors.shape[0], gt_t.shape[0]
-    iou_bound = bound(4 * (5 * a + 5 * g + a * g), iou_ops(torch, anchors, gt_t), F32_FLOP_S)
-    check(a_err <= 1e-6, f"box_iou_rotated at the assignment shape {a}x{g}: kernel "
-          f"{t_ik:.4f} ms, plain {t_ip:.3f} ms, bound {iou_bound[0]:.4f} ms "
-          f"({iou_bound[1]}); max |kernel - plain| {a_err:.3g}")
-    iou_err = max(iou_err, a_err)
+    gts = torch.from_numpy(gt_all).to(dev)
+    refined = anchors[None] + torch.randn(BATCH, anchors.shape[0], 5, generator=gen,
+                                          device=dev) * torch.tensor(
+        [2.0, 2.0, 1.0, 1.0, 0.05], device=dev)
+    a, g = anchors.shape[0], gts.shape[1]
+    iou_calls = {}
+    for name, anc in (("shared anchors (FAM stage)", anchors),
+                      ("per-image anchors (ODM stage)", refined)):
+        got = iou.box_iou_rotated_cuda(anc, gts)
+        torch.cuda.synchronize()
+        a_err = (got - iou.box_iou_rotated_plain(anc, gts)).abs().max().item()
+        t_ik, s_ik = cuda_ms(torch, lambda anc=anc: iou.box_iou_rotated_cuda(anc, gts), 20)
+        t_ip, _ = cuda_ms(torch, lambda anc=anc: iou.box_iou_rotated_plain(anc, gts), 1)
+        rows1 = 1 if anc.dim() == 2 else BATCH
+        ops = sum(iou_ops(torch, anc if anc.dim() == 2 else anc[i], gts[i])
+                  for i in range(BATCH))
+        i_bound = bound(4 * (5 * a * rows1 + 5 * BATCH * g + BATCH * a * g), ops, F32_FLOP_S)
+        check(a_err <= 1e-6, f"box_iou_rotated at the assignment shape, {name}, "
+              f"[{rows1}, {a}, 5] x [{BATCH}, {g}, 5], one launch: kernel {t_ik:.4f} ms "
+              f"(spread {s_ik:.1%}), plain {t_ip:.3f} ms, bound {i_bound[0]:.4f} ms "
+              f"({i_bound[1]}): {i_bound[0] / t_ik:.1%} of the bound; max |kernel - plain| "
+              f"{a_err:.3g}")
+        iou_err = max(iou_err, a_err)
+        iou_calls[name] = (t_ik, t_ip, i_bound)
+    (t_ik, t_ip, iou_bound), (t_ik2, _, iou_bound2) = iou_calls.values()
+    say(f"   the two calls of a step: {t_ik + t_ik2:.4f} ms")
 
     phase_step_vs_plain(torch, dev)
 
@@ -1256,7 +1407,8 @@ def main(argv=None) -> int:
              replaces="s2anet_tpu/ops/pallas/iou_kernel.py:46",
              launches=train_launches["s2a_box_iou_rotated"], path="train",
              max_abs_err=iou_err, ms=t_ik, plain_ms=t_ip, bound_ms=iou_bound[0],
-             bound_by=iou_bound[1], library_ms=None),
+             bound_by=iou_bound[1], library_ms=None, per_image_ms=t_ik2,
+             per_image_bound_ms=iou_bound2[0]),
         dict(name="nms_rotated_mask", source=src_i,
              replaces="s2anet_tpu/ops/pallas/iou_kernel.py:46",
              launches=launches["s2a_nms_rotated_mask"], path="serve",
@@ -1267,7 +1419,8 @@ def main(argv=None) -> int:
              replaces="s2anet_tpu/ops/nms_rotated.py:28",
              launches=launches["s2a_nms_rotated_sweep"], path="serve",
              max_abs_err=float(keep_diff > 0), ms=t_sk, plain_ms=t_sp,
-             bound_ms=sweep_bound[0], bound_by=sweep_bound[1], library_ms=None),
+             bound_ms=sweep_bound[0], bound_by=sweep_bound[1], library_ms=None,
+             no_valid_ms=t_s0),
         dict(name="channel_moments", source=src_m,
              replaces="s2anet_tpu/ops/pallas/moments.py:43",
              launches=train_launches["s2a_channel_moments"], path="train", **bn_rows["moments"]),

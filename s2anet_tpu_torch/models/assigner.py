@@ -67,10 +67,7 @@ def assign_labels(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     """Codes ``[B, A]`` for ``anchors [A, 5]`` (shared by the batch) or
     ``[B, A, 5]``, against ``gt_boxes [B, G, 5]`` with ``gt_mask [B, G]``.
 
-    One rotated-IoU call per image.
+    One rotated-IoU call for the batch (one kernel launch on the card).
     """
-    b = gt_boxes.shape[0]
-    if anchors.dim() == 2:
-        anchors = anchors[None].expand(b, -1, -1)
-    iou = torch.stack([box_iou_rotated(anchors[i], gt_boxes[i]) for i in range(b)])
+    iou = box_iou_rotated(anchors, gt_boxes)
     return assign_from_iou(iou, valid_anchors(anchors, imgs_size), gt_mask)

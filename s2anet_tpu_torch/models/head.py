@@ -34,6 +34,7 @@ from ..ops.deform_conv import align_conv_offsets, deform_conv2d
 from ..ops.nms_rotated import multiclass_nms_rotated
 from ..ops.orn import rotate_arf, rotation_invariant_pooling
 from ..ops.rbox import rboxes_decode, rboxes_encode
+from ..ops.topk import top_k
 from .anchors import grid_anchors
 from .assigner import assign_labels
 from .conv import Conv2d
@@ -297,7 +298,8 @@ def compute_s2anet_loss(outputs, gt_boxes, gt_classes, gt_mask,
 
 def decode_levels(outputs, max_before_nms_per_level: int = 2000):
     """Sigmoid scores and decoded boxes of the ODM outputs, after a per-level
-    top-k prefilter on each anchor's best class.
+    top-k prefilter on each anchor's best class (ties: the lower index
+    first, as in ``lax.top_k``).
 
     Returns ``(boxes [B, N, 5], scores [B, N, C])``, levels concatenated.
     """
@@ -310,7 +312,7 @@ def decode_levels(outputs, max_before_nms_per_level: int = 2000):
         bbox = bbox.reshape(b, -1, 5).float()
         n = scores.shape[1]
         if 0 < max_before_nms_per_level < n:
-            _, idx = scores.amax(-1).topk(max_before_nms_per_level, dim=1)
+            _, idx = top_k(scores.amax(-1), max_before_nms_per_level)
             scores = torch.gather(scores, 1, idx[..., None].expand(-1, -1, nc))
             bbox = torch.gather(bbox, 1, idx[..., None].expand(-1, -1, 5))
             anc = torch.gather(anc, 1, idx[..., None].expand(-1, -1, 5))

@@ -25,7 +25,7 @@ from .._ext import I, P, Kernel
 _PARALLEL_TOL2 = 1e-12  # relative (cos angle)^2 cutoff for parallel edges
 _SIDE_EPS = 1e-6        # half-plane tie-break; acts only on exact-zero crosses
 
-BOX_IOU = Kernel("iou_nms_rotated", "s2a_box_iou_rotated", [P, P, P, I, I, P])
+BOX_IOU = Kernel("iou_nms_rotated", "s2a_box_iou_rotated", [P, P, P, I, I, I, I, P])
 
 
 def _corners_centered(w, h, a):
@@ -86,38 +86,54 @@ def iou_pairs(params1, params2):
     return torch.where((area1 < 1e-14) | (area2 < 1e-14), 0.0, iou)
 
 
+def _as_batch(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """``(b1 [1 or B, N, 5], b2 [B, M, 5], batched)`` from ``[N, 5] x [M, 5]``
+    (unbatched, B = 1) or ``[N, 5] or [B, N, 5] x [B, M, 5]``; a ``[N, 5]``
+    boxes1 against a batch is shared by every image."""
+    batched = boxes2.dim() == 3
+    b1 = boxes1 if boxes1.dim() == 3 else boxes1[None]
+    b2 = boxes2 if batched else boxes2[None]
+    if (boxes1.dim() not in (2, 3) or boxes2.dim() not in (2, 3) or b1.shape[-1] != 5
+            or b2.shape[-1] != 5 or (not batched and boxes1.dim() == 3)
+            or b1.shape[0] not in (1, b2.shape[0])):
+        raise ValueError("boxes are [N, 5] x [M, 5], or [N, 5] or [B, N, 5] x [B, M, 5]")
+    return b1, b2, batched
+
+
 def box_iou_rotated_plain(boxes1: torch.Tensor, boxes2: torch.Tensor,
                           block_n: int = 256) -> torch.Tensor:
-    """``[N, 5] x [M, 5] -> [N, M]`` float32, in row blocks of ``block_n``."""
-    b1 = boxes1.float()
-    b2 = boxes2.float()
-    p2 = tuple(b2[None, :, k] for k in range(5))
-    rows = [iou_pairs(tuple(blk[:, None, k] for k in range(5)), p2)
-            for blk in b1.split(block_n)]
-    if not rows:
-        return torch.zeros(0, b2.shape[0], device=b1.device)
-    return torch.cat(rows)
+    """``[N, 5] x [M, 5] -> [N, M]``, or ``[N, 5] or [B, N, 5] x [B, M, 5]
+    -> [B, N, M]``, float32, in row blocks of ``block_n``."""
+    b1, b2, batched = _as_batch(boxes1.float(), boxes2.float())
+    p2 = tuple(b2[:, None, :, k] for k in range(5))
+    rows = [iou_pairs(tuple(blk[:, :, None, k] for k in range(5)), p2)
+            for blk in b1.split(block_n, dim=1)]
+    if rows:
+        out = torch.cat(rows, 1)
+    else:
+        out = torch.zeros(b2.shape[0], 0, b2.shape[1], device=b1.device)
+    return out if batched else out[0]
 
 
 def box_iou_rotated_cuda(boxes1: torch.Tensor,
                          boxes2: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel (``csrc/iou_nms_rotated.cu``) on CUDA tensors."""
+    """The CUDA kernel (``csrc/iou_nms_rotated.cu``) on CUDA tensors: one
+    launch for the batch; shared ``[N, 5]`` boxes1 are read with a batch
+    stride of 0, not copied."""
     if not (boxes1.is_cuda and boxes2.is_cuda):
         raise ValueError("box_iou_rotated_cuda takes CUDA tensors")
-    if boxes1.dim() != 2 or boxes2.dim() != 2 or boxes1.shape[1] != 5 \
-            or boxes2.shape[1] != 5:
-        raise ValueError("boxes are [N, 5]")
-    b1 = boxes1.float().contiguous()
-    b2 = boxes2.float().contiguous()
-    n, m = b1.shape[0], b2.shape[0]
-    out = torch.empty(n, m, dtype=torch.float32, device=b1.device)
-    BOX_IOU(b1.data_ptr(), b2.data_ptr(), out.data_ptr(), n, m,
-            torch.cuda.current_stream(b1.device).cuda_stream)
-    return out
+    b1, b2, batched = _as_batch(boxes1.float().contiguous(),
+                                boxes2.float().contiguous())
+    b, n, m = b2.shape[0], b1.shape[1], b2.shape[1]
+    out = torch.empty(b, n, m, dtype=torch.float32, device=b1.device)
+    BOX_IOU(b1.data_ptr(), b2.data_ptr(), out.data_ptr(), b, n, m,
+            int(b1.shape[0] == 1), torch.cuda.current_stream(b1.device).cuda_stream)
+    return out if batched else out[0]
 
 
 def box_iou_rotated(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """Pairwise rotated IoU ``[N, M]``: the plain version for CPU tensors,
+    """Pairwise rotated IoU, ``[N, M]`` or batched ``[B, N, M]`` (shapes as
+    in :func:`box_iou_rotated_plain`): the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors. The kernel also returns 0 for pairs
     whose bounding circles are apart."""
     if boxes1.device.type == "cpu":

@@ -18,6 +18,7 @@ import torch
 
 from .._ext import F, I, P, Kernel
 from .iou_rotated import iou_pairs
+from .topk import top_k
 
 NMS_MASK = Kernel("iou_nms_rotated", "s2a_nms_rotated_mask",
                   [P, P, P, F, P, I, I, P])
@@ -125,14 +126,15 @@ def nms_keep(boxes, labels, valid, iou_thr):
 def select_candidates(bboxes: torch.Tensor, scores: torch.Tensor,
                       score_thr: float, pre_nms_cap: int):
     """The NMS candidates: the top ``min(pre_nms_cap, N*C)`` (box, class)
-    pairs by score, sorted, scores at or below ``score_thr`` set to -1.
+    pairs by score, sorted (ties: the lower flat index first, as in
+    ``lax.top_k``), scores at or below ``score_thr`` set to -1.
 
     Returns ``(scores [B,K], boxes [B,K,5], labels [B,K], valid [B,K])``.
     """
     b, n, c = scores.shape
     flat = scores.reshape(b, n * c)
     flat = torch.where(flat > score_thr, flat, -1.0)
-    top_scores, top_idx = flat.topk(min(pre_nms_cap, n * c), dim=1)
+    top_scores, top_idx = top_k(flat, min(pre_nms_cap, n * c))
     cand_boxes = torch.gather(bboxes, 1, (top_idx // c)[..., None].expand(-1, -1, 5))
     return top_scores, cand_boxes, top_idx % c, top_scores > score_thr
 
@@ -157,7 +159,8 @@ def multiclass_nms_rotated(bboxes: torch.Tensor, scores: torch.Tensor,
 
     kept = torch.where(alive, top_scores, -1.0)
     m = min(max_per_img, k)
-    sel_scores, sel = kept.topk(m, dim=1)
+    # the survivors come out in candidate order, as lax.top_k gives them
+    sel_scores, sel = top_k(kept, m)
     det_valid = sel_scores > score_thr
     det_boxes = torch.cat(
         [torch.gather(cand_boxes, 1, sel[..., None].expand(-1, -1, 5)),

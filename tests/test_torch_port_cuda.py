@@ -21,6 +21,7 @@ from s2anet_tpu_torch.ops import deform_conv as dc
 from s2anet_tpu_torch.ops import iou_rotated as iou
 from s2anet_tpu_torch.ops import moments as mo
 from s2anet_tpu_torch.ops import nms_rotated as nms
+from s2anet_tpu_torch.ops import topk
 
 pytestmark = pytest.mark.cuda
 
@@ -87,6 +88,61 @@ def test_iou_kernel_matches_plain(dev, gen):
                                rtol=0, atol=1e-6)
 
 
+def _iou_boxes(gen, dev, shape, span):
+    """Random rotated boxes ``shape + (5,)`` over ``span`` pixels."""
+    xy = torch.rand(shape + (2,), generator=gen, device=dev) * span
+    wh = torch.rand(shape + (2,), generator=gen, device=dev) * 60 + 4
+    ang = torch.rand(shape + (1,), generator=gen, device=dev) * 3 - 1
+    return torch.cat([xy, wh, ang], -1)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("m", [1, 19, 64, 130])
+def test_batched_iou_kernel_equals_plain(dev, gen, b, m):
+    """One launch for [B, N, 5] x [B, M, 5]; N = 1000 is not a multiple of
+    the 64-row tile, M = 130 takes three column passes; a padded gt slot
+    (zero box) gives 0."""
+    b1 = _iou_boxes(gen, dev, (b, 1000), 300.0)
+    b2 = _iou_boxes(gen, dev, (b, m), 300.0)
+    b2[:, -1] = 0.0
+    before = iou.BOX_IOU.launches
+    got = iou.box_iou_rotated(b1, b2)
+    torch.cuda.synchronize()
+    assert iou.BOX_IOU.launches == before + 1 and got.shape == (b, 1000, m)
+    want = iou.box_iou_rotated_plain(b1, b2)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert (got[:, :, -1] == 0).all() and (m < 19 or (got > 0).sum() > 100)
+
+
+@pytest.mark.parametrize("b", [3, 8])
+def test_batched_iou_kernel_shared_anchors(dev, gen, b):
+    """Anchors [A, 5] shared by the batch (read with a batch stride of 0)
+    give what the batch of copies gives, and the plain version."""
+    anc = _iou_boxes(gen, dev, (777,), 200.0)
+    gts = _iou_boxes(gen, dev, (b, 64), 200.0)
+    got = iou.box_iou_rotated(anc, gts)
+    torch.cuda.synchronize()
+    copies = iou.box_iou_rotated(anc[None].expand(b, -1, -1).contiguous(), gts)
+    assert torch.equal(got, copies)
+    torch.testing.assert_close(got, iou.box_iou_rotated_plain(anc, gts), rtol=0, atol=1e-6)
+
+
+def test_batched_iou_kernel_degenerate_boxes(dev):
+    """Identical, grid-touching, stacked-touching, shared-edge, contained
+    and zero-size boxes, as rows and as a batch of gts."""
+    s = 8.0
+    rows = [[x * s, y * s, 4 * s, 4 * s, 0.0] for x in range(4) for y in range(4)]
+    rows += [[100.0, 100.0, 80.0, 40.0, 0.0], [100.0, 130.0, 60.0, 20.0, 0.0],
+             [50.0, 50.0, 100.0, 40.0, 0.0], [80.0, 50.0, 60.0, 40.0, 0.0],
+             [10.0, 10.0, 50.0, 30.0, 0.3], [10.0, 10.0, 20.0, 10.0, 0.3]]
+    rows += [[0.0] * 5] * 3
+    deg = torch.tensor(rows, device=dev)
+    got = iou.box_iou_rotated(deg, deg[None].repeat(2, 1, 1))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[1], iou.box_iou_rotated_plain(deg, deg), rtol=0, atol=1e-6)
+    assert torch.equal(got[0], got[1])
+
+
 def test_nms_kernels_match_plain(dev, gen):
     b, k = 3, 1000
     ctr = torch.rand(b, 10, 2, generator=gen, device=dev) * 300
@@ -105,8 +161,9 @@ def test_nms_kernels_match_plain(dev, gen):
     assert got.sum() < valid.sum()
 
 
-def _candidates(gen, dev, b, k, valid_kind, one_label):
-    """Score-sorted-looking NMS candidates crowded around a few centres."""
+def _candidates(gen, dev, b, k, valid_kind, one_label, large_labels=False):
+    """Score-sorted-looking NMS candidates crowded around a few centres;
+    labels 0-14, all 0, or 15 large values."""
     ctr = torch.rand(b, 12, 2, generator=gen, device=dev) * 400
     pick = torch.randint(0, 12, (b, k), generator=gen, device=dev)
     xy = torch.gather(ctr, 1, pick[..., None].expand(-1, -1, 2))
@@ -116,6 +173,8 @@ def _candidates(gen, dev, b, k, valid_kind, one_label):
     boxes = torch.cat([xy, wh, ang], -1)
     labels = (torch.zeros(b, k, dtype=torch.int64, device=dev) if one_label
               else torch.randint(0, 15, (b, k), generator=gen, device=dev))
+    if large_labels:
+        labels = labels * 1000003 + (1 << 30)
     idx = torch.arange(k, device=dev)[None]
     if valid_kind == "prefix":
         valid = idx < torch.tensor([[k], [max(1, (2 * k) // 3)]], device=dev)[:b]
@@ -152,6 +211,34 @@ def test_nms_mask_bits_and_keeps_equal_plain(dev, gen, k, valid_kind, one_label)
     boxes, labels, valid = _candidates(gen, dev, 2, k, valid_kind, one_label)
     pairs = _assert_mask_and_keep_equal_plain(boxes, labels, valid, 0.5)
     assert k < 1000 or pairs > 0
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 1000, 4096])
+@pytest.mark.parametrize("labels", ["one", "fifteen", "large"])
+def test_nms_sweep_keeps_equal_plain(dev, gen, k, labels):
+    """The sweep reads only the mask and the valid flags, so its keeps must
+    not depend on the labels behind the mask: one label, 15 labels and
+    large label values; valid not a prefix, and an image with none valid."""
+    boxes, lab, valid = _candidates(gen, dev, 3, k, "scattered", labels == "one",
+                                    large_labels=labels == "large")
+    valid[2] = False  # an image with no valid candidate
+    before = nms.NMS_SWEEP.launches
+    keep = nms.nms_keep(boxes, lab, valid, 0.5)
+    torch.cuda.synchronize()
+    assert nms.NMS_SWEEP.launches == before + 1
+    assert torch.equal(keep, nms.nms_keep_plain(boxes, lab, valid, 0.5))
+    assert not keep[2].any() and (k < 1000 or keep.sum() < valid.sum())
+
+
+def test_top_k_cuda_equals_cpu_on_bf16_ties(dev, gen):
+    """Sigmoids of bf16 logits tie; the card's order is the CPU's (and
+    lax.top_k's): descending, the lower index first."""
+    x = torch.sigmoid(torch.randn(4, 80160, generator=gen, device=dev).bfloat16().float())
+    x[:, ::7] = -1.0
+    vals, idx = topk.top_k(x, 4096)
+    want_vals, want_idx = topk.top_k(x.cpu(), 4096)
+    assert torch.equal(idx.cpu(), want_idx) and torch.equal(vals.cpu(), want_vals)
+    assert len(torch.unique(vals[0])) < 4096
 
 
 @pytest.mark.parametrize("k", [64, 1000])
@@ -498,7 +585,7 @@ def test_small_train_step_kernel_path(dev):
     per_step = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
     assert per_step == {
         "s2a_deform_conv2d_fwd": 5, "s2a_deform_conv2d_bwd": 5,
-        "s2a_box_iou_rotated": 4,  # FAM and ODM assignment, per image
+        "s2a_box_iou_rotated": 2,  # FAM and ODM assignment, one launch each
         "s2a_nms_rotated_mask": 0, "s2a_nms_rotated_sweep": 0,
         "s2a_channel_moments": 20, "s2a_grad_channel_sums": 20,
         "s2a_bn_apply": 20, "s2a_bn_dx": 20}

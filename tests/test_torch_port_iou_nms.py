@@ -120,3 +120,24 @@ def test_nms_keep_invalid_never_suppress(rng):
     valid = torch.tensor([[False, True, True, True]])
     keep = nms_rotated.nms_keep(boxes, labels, valid, 0.5)
     assert keep.tolist() == [[False, True, True, False]]
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_batched_iou_matches_pallas_per_image(rng, shared):
+    """``[N, 5] or [B, N, 5] x [B, M, 5] -> [B, N, M]`` in one call equals
+    the TPU kernel (interpret mode) image by image; padded gt slots (zero
+    boxes) give 0."""
+    b, n, m = 3, 70, 19
+    b1 = _rand(rng, n, 120.0) if shared else np.stack([_rand(rng, n, 120.0) for _ in range(b)])
+    b2 = np.stack([_rand(rng, m, 120.0) for _ in range(b)])
+    b2[1, 12:] = 0.0
+    got = iou_rotated.box_iou_rotated(torch.from_numpy(b1), torch.from_numpy(b2)).numpy()
+    assert got.shape == (b, n, m)
+    for i in range(b):
+        rows = b1 if shared else b1[i]
+        want = np.asarray(box_iou_rotated_pallas(jnp.asarray(rows), jnp.asarray(b2[i]),
+                                                 interpret=True))
+        np.testing.assert_allclose(got[i], want, atol=1e-6)
+        # the batched call equals the unbatched one exactly
+        np.testing.assert_array_equal(got[i], _port_iou(rows, b2[i]))
+    assert (got[1, :, 12:] == 0).all() and (got > 0).sum() > 50

@@ -25,7 +25,7 @@ from s2anet_tpu.utils import config as jax_config
 from s2anet_tpu_torch import config
 from s2anet_tpu_torch.models import assigner, losses
 from s2anet_tpu_torch.models.bn import BatchNorm2d
-from s2anet_tpu_torch.ops import rbox
+from s2anet_tpu_torch.ops import iou_rotated, rbox
 from s2anet_tpu_torch.train.schedule import build_lr_schedule
 from s2anet_tpu_torch.train.state import ModelEMA
 
@@ -107,6 +107,30 @@ def test_assign_labels_codes_equal_jax(rng):
     shared = assigner.assign_labels(torch.from_numpy(anc[0]), torch.from_numpy(gtb),
                                     torch.from_numpy(gtm), (128, 128)).numpy()
     np.testing.assert_array_equal(shared[0], got[0])
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_assign_labels_one_iou_call_per_stage(rng, shared, monkeypatch):
+    """One rotated-IoU call for the batch, shared anchors [A, 5] (the FAM
+    stage) or per-image anchors [B, A, 5] (the ODM stage); codes exactly
+    equal to JAX's."""
+    anc, gtb, gtm = _assign_inputs(rng)
+    calls = []
+
+    def counted(a, g):
+        calls.append((tuple(a.shape), tuple(g.shape)))
+        return iou_rotated.box_iou_rotated_plain(a, g)
+
+    monkeypatch.setattr(assigner, "box_iou_rotated", counted)
+    anchors = anc[0] if shared else anc
+    got = assigner.assign_labels(torch.from_numpy(anchors), torch.from_numpy(gtb),
+                                 torch.from_numpy(gtm), (128, 128)).numpy()
+    assert calls == [(anchors.shape, gtb.shape)]
+    for i in range(anc.shape[0]):
+        want, _ = jax_assigner.assign_labels(
+            jnp.asarray(anchors if shared else anchors[i]), jnp.asarray(gtb[i]),
+            jnp.asarray(gtm[i]), imgs_size=(128, 128), gt_tier=0)
+        np.testing.assert_array_equal(got[i], np.asarray(want))
 
 
 def test_assign_from_iou_rules_equal_jax(rng):
