@@ -78,9 +78,36 @@ last line:
                kernels within 1e-3 (of its largest value) of the gradient
                from the plain backward; the all-plain path's gradients and
                their spread under a 1e-7 input perturbation are reported
+ 11. evaluation  a synthetic DOTA-format set written without cv2 or PIL
+               (16 1024^2 PNG chips from a zlib writer, their BGR .npy
+               sidecars and YOLO labels of drawn rotated rectangles; a
+               3000x4000 RGB .npy scene with its DOTA labelTxt), then
+               python -m s2anet_tpu_torch.val on the chips (R-50, 15
+               classes, bf16, batch 8, score_thr 0.005): map50, precision
+               and recall finite in [0, 1], every chip's entry, AlignConv 5
+               and NMS mask and sweep 1 launch a batch, images/s end to end
+               (the 16 chips, then listed 32 times: 64 batches); over the
+               512 listed chips, 3 runs each in turns: the loader's own
+               rate with 1 and 4 workers (no model), and the runner's
+               pinned pipeline against a plain synchronous step;
+               python -m s2anet_tpu_torch.predict --mode chips on the
+               scene: 20 windows at gap 200, merged polygons in the frame,
+               seconds split into model and merge, and in float32
+               (TF32 off) the kernel path's merged detections against the
+               plain path's, >= 95% matched 1:1 by (label, score, centre
+               within 1 px); and under the metric: the chips relabelled
+               with a plain path's own detections (each class's 64 best),
+               every path scored against them in merge mode (mAP50 over the
+               classes that have labels): each plain path 1.0 by
+               construction, the float32 kernel path >= 0.95 against the
+               float32 plain path's labels, the bf16 kernel path >= 0.90
+               against the bf16 plain path's, and against the float32
+               labels the bf16 kernel path within 0.02 of the bf16 plain
+               path (bf16 scores reorder random-weight near-ties)
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
-on its path (training, or serving for the NMS kernels), its largest error
+on its path (training, or serving for the NMS kernels; ``eval_launches``:
+the val run of phase 11 for the kernels on that path), its largest error
 against the plain version, its time, the plain version's and the library
 call's time where there is one, and the least time the card could take
 (``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
@@ -94,9 +121,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 from unittest import mock
 
@@ -105,6 +134,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 BATCH, SIZE, SEED = 8, 1024, 0
 REPEATS = 5  # timed loops per measurement; the median is reported
+GT_PER_CLASS = 64  # phase 11: labels per class from the plain path's detections
+LISTED = 32  # phase 11: the chips listed this many times for the timed runs
+TURNS = 3  # phase 11: timed runs of each variant, in turns
 # H100 SXM peaks (NVIDIA's data sheet; full rates at 700 W)
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
@@ -884,6 +916,322 @@ def phase_step_vs_plain(torch, dev):
     return item_rel, max(bwd.values())
 
 
+def write_png(path: Path, rgb) -> None:
+    """An 8-bit RGB PNG: filter 0 on every row, one zlib stream."""
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], 1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+                     + chunk(b"IEND", b""))
+
+
+def draw_objects(rng, img, n: int, margin: int = 80):
+    """``n`` filled rotated rectangles drawn on ``img`` (RGB), all inside
+    the frame; returns their boxes ``[n, 5]`` (x, y, w, h, theta) and
+    classes."""
+    h, w = img.shape[:2]
+    boxes = np.stack([rng.uniform(margin, w - margin, n), rng.uniform(margin, h - margin, n),
+                      rng.uniform(24, 120, n), rng.uniform(10, 40, n),
+                      rng.uniform(-np.pi / 4, 3 * np.pi / 4, n)], 1)
+    for cx, cy, bw, bh, a in boxes:
+        r = int(np.ceil(0.5 * np.hypot(bw, bh)))
+        x0, x1 = max(int(cx) - r, 0), min(int(cx) + r + 1, w)
+        y0, y1 = max(int(cy) - r, 0), min(int(cy) + r + 1, h)
+        yy, xx = np.mgrid[y0:y1, x0:x1] + 0.5
+        u = (xx - cx) * np.cos(a) + (yy - cy) * np.sin(a)
+        v = -(xx - cx) * np.sin(a) + (yy - cy) * np.cos(a)
+        img[y0:y1, x0:x1][(np.abs(u) <= bw / 2) & (np.abs(v) <= bh / 2)] = rng.integers(140, 256, 3)
+    return boxes, rng.integers(0, 15, n)
+
+
+def write_eval_data(root: Path, rng, n_chips: int, scene_hw):
+    """A DOTA-format chip set in the JAX package's layout (``images/*.png``
+    with BGR ``.npy`` sidecars written after them, ``labels/*.txt`` YOLO
+    rotated) and one RGB ``.npy`` scene with its DOTA ``labelTxt``."""
+    from s2anet_tpu_torch.config import DOTA10_CLASSES
+    from s2anet_tpu_torch.ops.polyiou import rbox_vertices_np
+
+    (root / "chips" / "images").mkdir(parents=True)
+    (root / "chips" / "labels").mkdir()
+    for i in range(n_chips):
+        img = rng.integers(0, 90, (SIZE, SIZE, 3), dtype=np.uint8)
+        boxes, classes = draw_objects(rng, img, 12)
+        png = root / "chips" / "images" / f"chip_{i:04d}.png"
+        write_png(png, img)
+        np.save(png.with_suffix(".npy"), img[:, :, ::-1])  # BGR, newer than the PNG
+        polys = rbox_vertices_np(boxes).reshape(-1, 8) / SIZE
+        (root / "chips" / "labels" / f"chip_{i:04d}.txt").write_text("".join(
+            f"{c} " + " ".join(f"{v:.6f}" for v in p) + "\n" for c, p in zip(classes, polys)))
+    (root / "scene").mkdir()
+    (root / "scene_gt").mkdir()
+    scene = rng.integers(0, 90, scene_hw + (3,), dtype=np.uint8)
+    boxes, classes = draw_objects(rng, scene, 200)
+    np.save(root / "scene" / "scene_0000.npy", scene)
+    polys = rbox_vertices_np(boxes).reshape(-1, 8)
+    (root / "scene_gt" / "scene_0000.txt").write_text("".join(
+        " ".join(f"{v:.1f}" for v in p) + f" {DOTA10_CLASSES[c]} 0\n"
+        for c, p in zip(classes, polys)))
+    return scene
+
+
+@contextlib.contextmanager
+def plain_path(head_mod, dc, nms):
+    """The model with the plain AlignConv and the plain NMS keep."""
+    with mock.patch.object(head_mod, "deform_conv2d", dc.deform_conv2d_plain), \
+            mock.patch.object(nms, "nms_keep", nms.nms_keep_plain):
+        yield
+
+
+def dets_array(dets):
+    """``[(class, score, poly[8])]`` -> (``[n, 6]`` centre x, y, 0, 0, 0,
+    score; ``[n]`` classes) for :func:`match_1to1`."""
+    a = np.zeros((len(dets), 6))
+    for i, (_, s, p) in enumerate(dets):
+        a[i, :2] = np.asarray(p).reshape(4, 2).mean(0)
+        a[i, 5] = s
+    return a, np.array([c for c, _, _ in dets], np.int64)
+
+
+def matched_by_class(da, db) -> int:
+    """1:1 matches (label, score, centre within 1 px) of two detection
+    lists, class by class."""
+    (a, la), (b, lb) = dets_array(da), dets_array(db)
+    return sum(match_1to1(a[la == c], la[la == c], b[lb == c], lb[lb == c])
+               for c in np.unique(np.concatenate([la, lb])))
+
+
+def relabel(out_dir: Path, chip_dets, names, per_class: int):
+    """DOTA labelTxt files of the detections above each class's score cut,
+    the ``per_class``-th best score of that class over all chips: every
+    class gets labels, and a detection path scores against them."""
+    by_class = {}
+    for chip, dets in chip_dets.items():
+        for c, s, p in dets:
+            by_class.setdefault(c, []).append(s)
+    cut = {c: np.sort(v)[::-1][min(per_class, len(v)) - 1] for c, v in by_class.items()}
+    out_dir.mkdir(parents=True)
+    n = 0
+    for chip, dets in chip_dets.items():
+        lines = [" ".join(repr(float(v)) for v in p) + f" {names[c]} 0\n"
+                 for c, s, p in dets if s >= cut[c]]
+        n += len(lines)
+        (out_dir / f"{chip}.txt").write_text("".join(lines))
+    return n, min(cut.values()), max(cut.values())
+
+
+def rate_spread(rates) -> str:
+    """Median, slowest and fastest of a few rates, in images/s."""
+    r = sorted(rates)
+    return (f"median {r[len(r) // 2]:.2f} images/s (runs " + ", ".join(f"{v:.2f}" for v in rates)
+            + f"; spread {(r[-1] - r[0]) / r[len(r) // 2]:.1%})")
+
+
+def loop_split(out) -> str:
+    """The host's seconds of one evaluation loop (``evaluate_on_chips``)."""
+    sec = out["seconds"]
+    return (f"loop {sec['loop']:.3f} s, of it the host waiting for the loader "
+            f"{sec['loader_wait']:.3f} s, for the device {sec['device_wait']:.3f} s, "
+            f"post-processing {sec['post']:.3f} s")
+
+
+def phase_eval(torch, dev, out_dir):
+    """The evaluation path (section 11 of the module docstring); returns the
+    val run's launches of the kernels on its path."""
+    import dataclasses
+    import shutil
+
+    from s2anet_tpu_torch import native
+    from s2anet_tpu_torch import predict as port_predict
+    from s2anet_tpu_torch import val as port_val
+    from s2anet_tpu_torch.config import DOTA10_CLASSES, Config, DataConfig, EvalConfig, ModelConfig
+    from s2anet_tpu_torch.data.dota import BatchLoader, DotaDataset
+    from s2anet_tpu_torch.data.split import window_origins
+    from s2anet_tpu_torch.eval.runner import evaluate_on_chips, score_detections
+    from s2anet_tpu_torch.models import head as head_mod
+    from s2anet_tpu_torch.ops import deform_conv as dc
+    from s2anet_tpu_torch.ops import nms_rotated as nms
+
+    say("== 11. evaluation")
+    root = out_dir / "eval"
+    shutil.rmtree(root, ignore_errors=True)
+    n_chips, scene_hw, gap = 16, (3000, 4000), 200
+    t0 = time.perf_counter()
+    scene = write_eval_data(root, np.random.default_rng(SEED), n_chips, scene_hw)
+    say(f"   wrote {n_chips} {SIZE}x{SIZE} PNG chips (zlib) with BGR .npy sidecars and YOLO "
+        f"labels, and a {scene_hw[0]}x{scene_hw[1]} RGB .npy scene with its DOTA labelTxt, "
+        f"in {time.perf_counter() - t0:.1f} s; native polygon library: "
+        f"{'built' if native.AVAILABLE else 'absent (no host compiler): NumPy loops'}")
+    images = root / "chips" / "images"
+
+    kernels = [dc.DEFORM_FWD, nms.NMS_MASK, nms.NMS_SWEEP]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    args = ["--data-root", str(images), "--batch-size", str(BATCH), "--conf-thres", "0.005",
+            "--seed", str(SEED), "--save-dir", str(root / "val")]
+    # the chips listed LISTED times: 64 batches, a loop of seconds in the
+    # steady state of the one-batch-deep pipeline
+    listed = root / "chips" / f"val_x{LISTED}.txt"
+    listed.write_text("".join(f"{q}\n" for _ in range(LISTED)
+                              for q in sorted(images.glob("*.png"))))
+    say(f"   python -m s2anet_tpu_torch.val {' '.join(args)}, then with --data-root "
+        f"{listed.name} (the {n_chips} chips {LISTED} times)")
+    runs = []
+    for run, data_root in enumerate((images, listed)):
+        args[1] = str(data_root)
+        nb = -(-n_chips * (LISTED if data_root == listed else 1) // BATCH)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = port_val.main(args)
+        torch.cuda.synchronize()
+        launches = {k.symbol: k.launches for k in kernels}
+        runs.append((out, time.perf_counter() - t0))
+        check(launches == {"s2a_deform_conv2d_fwd": 5 * nb, "s2a_nms_rotated_mask": nb,
+                           "s2a_nms_rotated_sweep": nb},
+              f"val run {run + 1}: launches {launches} over {nb} batches (AlignConv 5 a "
+              f"batch, NMS mask and sweep 1 a batch)")
+        if run == 0:
+            res, first_launches = out, launches
+    m = (res["map50"], res["mp"], res["mr"])
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in m),
+          f"map50 {m[0]:.4f}, precision {m[1]:.4f}, recall {m[2]:.4f}: finite, in [0, 1] "
+          f"(random weights against drawn objects)")
+    seen = {line.split()[0] for f in (root / "val" / "chip_results").glob("Task1_*.txt")
+            for line in f.read_text().splitlines()}
+    n_det = sum(len(d) for d in res["chip_dets"].values())
+    check(res["n_images"] == n_chips and seen == {p.stem for p in images.glob("*.png")},
+          f"every chip has its entry: {res['n_images']} images, {len(seen)} in the "
+          f"Task1 files, {n_det} detections")
+    for name, (out, wall) in zip((f"{n_chips} chips", f"{n_chips * LISTED} listed"), runs):
+        say(f"   val {name}: {out['images_per_sec']:.2f} images/s end to end "
+            f"({out['n_images']} images; {loop_split(out)}; {wall:.1f} s with model build "
+            f"and mAP)")
+
+    # the loader alone (no model), and the runner's pipeline (pinned ring,
+    # outputs fetched one batch late) against a plain synchronous step
+    # (pageable input copy, outputs fetched as each batch ends): each over
+    # the listed chips, in turns
+    ds = DotaDataset(listed, img_size=SIZE)
+    loader = {1: [], 4: []}
+    for _ in range(TURNS):
+        for workers in loader:
+            t0 = time.perf_counter()
+            n = sum(len(b["paths"]) for b in BatchLoader(ds, BATCH, num_workers=workers))
+            loader[workers].append(n / (time.perf_counter() - t0))
+    say(f"   the loader alone over {len(ds)} listed chips (BGR sidecars, no model), "
+        f"{TURNS} runs in turns: " + "; ".join(
+            f"{w} worker{'s' * (w > 1)} {rate_spread(r)}" for w, r in loader.items()))
+    pred = port_predict.S2ANetPredictor(ModelConfig(score_thr=0.005), device="cuda", seed=SEED)
+    pred.predict(np.zeros((BATCH, SIZE, SIZE, 3), np.uint8))
+
+    def synchronous(imgs):
+        return tuple(t.cpu() for t in pred.predict(imgs))
+
+    lcfg = Config(model=pred.cfg, data=DataConfig(root=str(listed), img_size=SIZE),
+                  eval=EvalConfig(batch_size=BATCH))
+    steps = {"pinned ring": pred, "synchronous": synchronous}
+    ab = {name: [] for name in steps}
+    for _ in range(TURNS):
+        for name, step in steps.items():
+            ab[name].append(evaluate_on_chips(step, lcfg, dataset=ds))
+    say(f"   evaluate_on_chips over {len(ds)} listed chips, {TURNS} runs each in turns:")
+    for name, outs in ab.items():
+        say(f"     {name}: {rate_spread([o['images_per_sec'] for o in outs])}; of its median "
+            f"run: {loop_split(sorted(outs, key=lambda o: o['images_per_sec'])[TURNS // 2])}")
+    del pred
+
+    args = ["--source", str(root / "scene"), "--batch-size", str(BATCH), "--conf", "0.005",
+            "--gap", str(gap), "--seed", str(SEED), "--save-dir", str(root / "predict")]
+    say(f"   python -m s2anet_tpu_torch.predict {' '.join(args)}")
+    summary = port_predict.main(args)
+    windows = window_origins(*scene_hw, SIZE, SIZE - gap)
+    check(summary["chips"] == len(windows) == 20,
+          f"scene {scene_hw[0]}x{scene_hw[1]}: {summary['chips']} windows at gap {gap} "
+          f"(window_origins: {len(windows)})")
+    polys = np.array([[float(v) for v in line.split()[2:]] for line in
+                      (root / "predict" / "scene_0000.txt").read_text().splitlines()])
+    side = np.sqrt(((polys[:, 2:4] - polys[:, 0:2]) ** 2).sum(1) + (
+        (polys[:, 4:6] - polys[:, 2:4]) ** 2).sum(1))
+    xs, ys = polys[:, 0::2], polys[:, 1::2]
+    inside = ((xs >= -side[:, None]) & (xs <= scene_hw[1] + side[:, None])
+              & (ys >= -side[:, None]) & (ys <= scene_hw[0] + side[:, None])).all(1)
+    check(len(polys) > 0 and inside.all(),
+          f"{len(polys)} merged detections, all in the scene's frame (+- the box size)")
+    say(f"   scene: {summary['seconds']:.3f} s: model {summary['model_seconds']:.3f} s, "
+        f"merge {summary['merge_seconds']:.3f} s (bf16, score_thr 0.005, "
+        f"{summary['detections']} detections after the merge)")
+
+    # float32, TF32 off: the kernel path against the plain path
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    mcfg = ModelConfig(score_thr=0.005)
+    pred32 = port_predict.S2ANetPredictor(mcfg, device="cuda", dtype=torch.float32, seed=SEED)
+
+    def run_scene():
+        return next(port_predict.serve_chips(pred32, [("scene_0000", scene)], SIZE, gap,
+                                             BATCH, mcfg.nms_iou_thr))[2]
+
+    dk = run_scene()
+    with plain_path(head_mod, dc, nms):
+        dp = run_scene()
+    frac = matched_by_class(dk, dp) / max(len(dk), len(dp), 1)
+    check(frac >= 0.95, f"scene, float32: kernel vs plain path merged detections matched 1:1 "
+          f"by (label, score, centre within 1 px) {frac:.4f} ({len(dk)} and {len(dp)})")
+
+    # under the metric: each path once over the chips, then scored in merge
+    # mode against labels made from a plain path's own detections
+    cfg = Config(model=mcfg, data=DataConfig(root=str(images), img_size=SIZE),
+                 eval=EvalConfig(batch_size=BATCH))
+    dets = {}
+    with plain_path(head_mod, dc, nms):
+        dets["plain f32"] = evaluate_on_chips(pred32, cfg)["chip_dets"]
+    dets["kernel f32"] = evaluate_on_chips(pred32, cfg)["chip_dets"]
+    del pred32
+    pred16 = port_predict.S2ANetPredictor(mcfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    with plain_path(head_mod, dc, nms):
+        dets["plain bf16"] = evaluate_on_chips(pred16, cfg)["chip_dets"]
+    dets["kernel bf16"] = evaluate_on_chips(pred16, cfg)["chip_dets"]
+    del pred16
+    torch.cuda.empty_cache()
+    scores = {}
+    for src in ("plain f32", "plain bf16"):
+        gt_dir = root / ("labels_" + src.replace(" ", "_"))
+        n_gt, lo, hi = relabel(gt_dir, dets[src], DOTA10_CLASSES, GT_PER_CLASS)
+        scfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, val_gt_dir=str(gt_dir)),
+            eval=dataclasses.replace(cfg.eval, is_map_split=False))
+        for path in dets:
+            r = score_detections(dets[path], scfg)
+            labelled = [c["ap"] for c in r["per_class"].values() if c["npos"]]
+            scores[src, path] = float(np.mean(labelled))
+        say(f"   labels from the {src} path: {n_gt} (each class's {GT_PER_CLASS} best, score "
+            f"cuts {lo:.5f}-{hi:.5f}, {len(labelled)} classes have detections); mAP50 over "
+            f"those classes, merge mode: " + ", ".join(
+                f"{path} {scores[src, path]:.4f}" for path in dets))
+    check(scores["plain f32", "plain f32"] >= 0.99 and scores["plain bf16", "plain bf16"] >= 0.99,
+          f"each plain path against its own labels: {scores['plain f32', 'plain f32']:.4f}, "
+          f"{scores['plain bf16', 'plain bf16']:.4f} (1.0 by construction)")
+    check(scores["plain f32", "kernel f32"] >= 0.95,
+          f"float32 kernel path against the float32 plain path's labels: "
+          f"{scores['plain f32', 'kernel f32']:.4f} (bar 0.95)")
+    check(scores["plain bf16", "kernel bf16"] >= 0.90,
+          f"bf16 kernel path against the bf16 plain path's labels: "
+          f"{scores['plain bf16', 'kernel bf16']:.4f} (bar 0.90)")
+    gap16 = abs(scores["plain f32", "kernel bf16"] - scores["plain f32", "plain bf16"])
+    check(gap16 <= 0.02,
+          f"against the float32 plain path's labels, bf16 scores by its dtype, not its "
+          f"kernels: kernel {scores['plain f32', 'kernel bf16']:.4f}, plain "
+          f"{scores['plain f32', 'plain bf16']:.4f} (|difference| {gap16:.4f} <= 0.02)")
+    shutil.rmtree(root)  # 100 MB of images: keep the --out directory small
+    return first_launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
     parser.add_argument("--out", default=str(ROOT / "runs" / "chip_smoke"),
@@ -1389,6 +1737,7 @@ def main(argv=None) -> int:
     say(f"   the two calls of a step: {t_ik + t_ik2:.4f} ms")
 
     phase_step_vs_plain(torch, dev)
+    eval_launches = phase_eval(torch, dev, out_dir)
 
     say(card)
     src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"
@@ -1398,6 +1747,7 @@ def main(argv=None) -> int:
         dict(name="deform_conv2d_fwd", source=src_d,
              replaces="s2anet_tpu/ops/pallas/deform_kernel.py:195",
              launches=train_launches["s2a_deform_conv2d_fwd"], path="train",
+             eval_launches=eval_launches["s2a_deform_conv2d_fwd"],
              max_abs_err=deform_err, ms=t_dk, plain_ms=t_dp, bound_ms=fwd_bound[0],
              bound_by=fwd_bound[1], library_ms=None, dense_conv_ms=dense_ms),
         dict(name="deform_conv2d_bwd", source=src_d,
@@ -1412,12 +1762,14 @@ def main(argv=None) -> int:
         dict(name="nms_rotated_mask", source=src_i,
              replaces="s2anet_tpu/ops/pallas/iou_kernel.py:46",
              launches=launches["s2a_nms_rotated_mask"], path="serve",
+             eval_launches=eval_launches["s2a_nms_rotated_mask"],
              max_abs_err=float(mask_diff > 0), ms=t_mk, plain_ms=t_mp,
              bound_ms=m_bound[0], bound_by=m_bound[1], library_ms=None,
              clustered_ms=t_mc, clustered_bound_ms=c_bound[0]),
         dict(name="nms_rotated_sweep", source=src_i,
              replaces="s2anet_tpu/ops/nms_rotated.py:28",
              launches=launches["s2a_nms_rotated_sweep"], path="serve",
+             eval_launches=eval_launches["s2a_nms_rotated_sweep"],
              max_abs_err=float(keep_diff > 0), ms=t_sk, plain_ms=t_sp,
              bound_ms=sweep_bound[0], bound_by=sweep_bound[1], library_ms=None,
              no_valid_ms=t_s0),

@@ -1,10 +1,13 @@
-"""S2ANet serving on PyTorch and CUDA (NVIDIA Hopper).
+"""S2ANet on PyTorch and CUDA (NVIDIA Hopper).
 
-A port of the serving path of :mod:`s2anet_tpu` (JAX): ResNet + FPN + the
-S2ANet head, decode and multiclass rotated NMS. The two hot spots run as
-hand-written CUDA kernels (``csrc/``): the AlignConv forward and the rotated
-IoU behind the NMS. Everything else is plain PyTorch.
+A port of :mod:`s2anet_tpu` (JAX): serving (ResNet + FPN + the S2ANet head,
+decode and multiclass rotated NMS; ``predict``, which also tiles and merges
+large scenes), the train step (``train``), and evaluation on DOTA-format
+data (``data``, ``eval``, ``val``). The hot spots run as hand-written CUDA
+kernels (``csrc/``); the polygon IoU of the evaluation runs in a small C++
+library (``native/``). Everything else is plain PyTorch and NumPy.
 
-This package imports ``torch`` and ``numpy`` only; it never imports JAX or
-the JAX package, so it runs on a machine that has neither.
+This package imports ``torch`` and ``numpy`` (and PIL, where installed, to
+decode an image file); it never imports JAX or the JAX package, so it runs
+on a machine that has neither.
 """

@@ -131,3 +131,8 @@ class Kernel:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+
+
+def host_cxx():
+    """The host C++ compiler (``g++``, else ``c++``), or None."""
+    return shutil.which("g++") or shutil.which("c++")

@@ -1,14 +1,17 @@
-"""Configuration: the serving and training fields of the JAX ``ModelConfig``
-and a copy of its ``TrainConfig``.
+"""Configuration: the serving and training fields of the JAX ``ModelConfig``,
+a copy of its ``TrainConfig``, and the fields of its ``DataConfig`` and
+``EvalConfig`` that evaluation reads.
 
 Same names and defaults as ``s2anet_tpu/utils/config.py`` (a test holds them
-equal); the int8 and TPU-implementation fields are left out, and so is the
-YAML loader.
+equal); the int8 and TPU-implementation fields, augmentation, rect batching
+and the YAML loader are left out. :func:`resolve_names` is ``load_config``'s
+rule for class-name presets and the class count.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Sequence
 
 
@@ -76,3 +79,69 @@ DOTA10_CLASSES = (
     "basketball-court", "storage-tank", "soccer-ball-field", "roundabout",
     "harbor", "swimming-pool", "helicopter",
 )
+# DOTA-v1.5 adds container-crane; v2.0 further adds airport and helipad
+DOTA15_CLASSES = DOTA10_CLASSES + ("container-crane",)
+DOTA20_CLASSES = DOTA15_CLASSES + ("airport", "helipad")
+HRSC_CLASSES = ("ship",)
+
+NAMES_PRESETS = {
+    "dota": DOTA10_CLASSES, "dota-v1.0": DOTA10_CLASSES,
+    "dota-v1.5": DOTA15_CLASSES, "dota-v2.0": DOTA20_CLASSES,
+    "hrsc": HRSC_CLASSES, "hrsc2016": HRSC_CLASSES,
+}
+
+
+@dataclass
+class DataConfig:
+    root: str = ""
+    val_list: str = ""                # txt of val image paths (YOLO layout)
+    # class names, or a preset key ("dota", "dota-v1.5", "dota-v2.0", "hrsc")
+    names: Sequence[str] = DOTA10_CLASSES
+    img_size: int = 1024
+    max_gt: int = 512                 # padded gt capacity per image
+    # image source: "" (BGR .npy sidecars, else PIL) | "packed" (data/dota.py)
+    cache: str = ""
+    workers: int = 0                  # loader threads (0 = auto)
+    val_gt_dir: str = ""              # per-image DOTA labelTxt dir (merge mode)
+
+
+@dataclass
+class EvalConfig:
+    batch_size: int = 16
+    is_map_split: bool = True         # evaluate against split-chip GT
+    iou_thres: float = 0.5            # TP matching IoU
+    merge_nms_thr: float = 0.5        # cross-chip polygon NMS
+    use_07_metric: bool = True        # 11-point VOC AP
+    task: int = 1                     # 1 = oriented (Task1), 2 = horizontal
+
+
+@dataclass
+class Config:
+    """What evaluation reads."""
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+
+
+def resolve_names(cfg: Config, names_explicit: bool) -> Config:
+    """``load_config``'s class-name rule: a preset key in ``data.names``
+    becomes its class list; then an explicitly chosen list sets
+    ``model.num_classes``, while the default list is cut or padded with
+    ``class<i>`` names to ``model.num_classes`` (mAP averages over the
+    names, so the two must agree)."""
+    names = cfg.data.names
+    if isinstance(names, str):
+        if names.lower() not in NAMES_PRESETS:
+            raise ValueError(f"unknown names preset {names!r}; "
+                             f"options: {sorted(NAMES_PRESETS)}")
+        names = NAMES_PRESETS[names.lower()]
+    names = tuple(names)
+    model = cfg.model
+    if len(names) != model.num_classes:
+        if names_explicit:
+            model = dataclasses.replace(model, num_classes=len(names))
+        else:
+            names = names[: model.num_classes] + tuple(
+                f"class{i}" for i in range(len(names), model.num_classes))
+    return dataclasses.replace(cfg, model=model,
+                               data=dataclasses.replace(cfg.data, names=names))

@@ -1,40 +1,51 @@
-"""Serve S2ANet on chip-sized images: ``python -m s2anet_tpu_torch.predict``.
+"""Serve S2ANet on images of any size: ``python -m s2anet_tpu_torch.predict``.
 
 The PyTorch/CUDA counterpart of the repository's ``predict.py`` in chips
-mode (``parallel/step.py::make_eval_step``): each chip is scaled by 1/255
-and run through the detector, decode and multiclass rotated NMS in batches.
-Per chip it writes ``<save-dir>/<name>.txt`` with one
+mode (``--mode chips``, the default and for now the only mode): every
+input is tiled into ``--img-size`` windows overlapping by ``--gap``
+(:func:`.data.split.split_image`; an input no larger than one window is
+one zero-padded window), the windows run in fixed batches through the
+detector, decode and multiclass rotated NMS (each chip scaled by 1/255),
+and each input's detections are shifted back and merged by cross-chip
+polygon NMS at ``--iou-thres`` (:func:`.data.merge.merge_chip_detections`).
+Per input it writes ``<save-dir>/<name>.txt`` with one
 ``class score x1 y1 x2 y2 x3 y3 x4 y4`` line per detection, prints one
-``<name>: N detections`` line, and ends with a JSON summary line.
+``<name>: N detections`` line, and ends with a JSON summary line (model and
+merge seconds apart).
 
-Inputs: ``--source`` is a directory of ``.npy`` chips (``[H, W, 3]`` uint8
-RGB) or ``--synthetic N`` makes N random chips from ``--seed``. Weights:
-``--weights`` takes an ``.npz`` of JAX-layout variables
-(:func:`.models.convert.save_jax_npz`) or a ``.pt`` port ``state_dict``;
-with none, the weights are random from ``--seed``.
+Inputs: ``--source`` is a directory of ``.npy`` images (``[H, W, 3]``
+uint8 **RGB**, any size) or ``--synthetic N`` makes N random chips of
+``--img-size`` from ``--seed``. Weights: ``--weights`` takes an ``.npz`` of
+JAX-layout variables (:func:`.models.convert.save_jax_npz`) or a ``.pt``
+port ``state_dict``; with none, the weights are random from ``--seed``.
 
-Not yet here: tiling and merging full-size images, and ``--mode spatial``.
+Not yet here: ``--mode spatial`` (the whole image, sharded by height).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import time
+from collections import deque
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from . import native
 from .config import DOTA10_CLASSES, ModelConfig
+from .data.merge import merge_chip_detections
+from .data.split import split_image
+from .eval.runner import BatchPipeline, detections_to_polys
 from .models.convert import load_jax_npz, state_dict_from_jax
 from .models.detector import S2ANet
 from .models.fold import fold_bn
 from .models.head import s2anet_get_bboxes
-from .ops.rbox import rbox_to_poly
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def load_state_dict(path: str, arch: str):
@@ -94,7 +105,8 @@ class S2ANetPredictor:
         return s2anet_get_bboxes(out, **{**self.post_kwargs(), **overrides})
 
 
-def _chips(opt):
+def _inputs(opt):
+    """``(name, [H, W, 3] uint8 RGB)`` per input."""
     if opt.synthetic:
         rng = np.random.default_rng(opt.seed)
         for i in range(opt.synthetic):
@@ -103,34 +115,99 @@ def _chips(opt):
         return
     paths = sorted(Path(opt.source).glob("*.npy"))
     if not paths:
-        raise SystemExit(f"no .npy chips under {opt.source}")
+        raise SystemExit(f"no .npy images under {opt.source}")
     for p in paths:
-        chip = np.load(p)
-        if chip.shape != (opt.img_size, opt.img_size, 3) or chip.dtype != np.uint8:
-            raise SystemExit(f"{p}: want [{opt.img_size}, {opt.img_size}, 3] "
-                             f"uint8, got {list(chip.shape)} {chip.dtype}")
-        yield p.stem, chip
+        img = np.load(p)
+        if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+            raise SystemExit(f"{p}: want [H, W, 3] uint8, got "
+                             f"{list(img.shape)} {img.dtype}")
+        yield p.stem, img
+
+
+def serve_chips(predictor, inputs, img_size: int, gap: int, batch_size: int,
+                iou_thr: float, timing=None):
+    """Tile, detect and merge: yields ``(name, windows, dets)`` per input,
+    in input order, ``dets`` a list of ``(class_id, score, poly[8])`` in
+    the input's frame. The windows run in fixed batches (the last padded
+    with zeros) through the evaluation runner's one-batch-deep pipeline
+    (:class:`.eval.runner.BatchPipeline`). ``timing`` (a dict), when
+    given, gathers the seconds of the model (windows staged, batches run
+    and fetched) and of the merge (polygons and cross-chip NMS)."""
+    timing = {} if timing is None else timing
+    timing.setdefault("model", 0.0)
+    timing.setdefault("merge", 0.0)
+    # [name, windows, chip detections, every window staged] in input order
+    open_inputs = deque()
+
+    def windows():
+        for name, img in inputs:
+            entry = [name, 0, {}, False]
+            open_inputs.append(entry)
+            for chip_name, chip in split_image(img, name, img_size, gap):
+                entry[1] += 1
+                yield entry, chip_name, chip
+            entry[3] = True
+
+    pipeline = BatchPipeline(predictor, batch_size, img_size)
+
+    def batches():
+        stream = windows()
+        for i in itertools.count():
+            group = [w for _, w in zip(range(batch_size), stream)]
+            if not group:
+                return
+            imgs = pipeline.slot(i)
+            for k, (_, _, chip) in enumerate(group):
+                imgs[k] = chip
+            imgs[len(group):] = 0  # pad to the fixed batch
+            yield len(group), group
+
+    waits = {"loader_wait": 0.0, "device_wait": 0.0}
+    t0 = time.perf_counter()
+    with pipeline:
+        for (det_boxes, det_labels, det_valid), _, group in pipeline.run(batches(), waits):
+            t1 = time.perf_counter()
+            timing["model"] += t1 - t0
+            for k, (entry, chip_name, _) in enumerate(group):
+                polys, scores = detections_to_polys(det_boxes[k], det_valid[k])
+                labels = det_labels[k][det_valid[k]]
+                entry[2][chip_name] = [(int(c), float(sc), p)
+                                       for c, sc, p in zip(labels, scores, polys)]
+            # an input is complete once all its windows are staged and back
+            while open_inputs and open_inputs[0][3] and (
+                    len(open_inputs[0][2]) == open_inputs[0][1]):
+                name, n_windows, chip_dets, _ = open_inputs.popleft()
+                dets = merge_chip_detections(chip_dets, iou_thr).get(name, [])
+                timing["merge"] += time.perf_counter() - t1
+                yield name, n_windows, dets
+                t1 = time.perf_counter()
+            timing["merge"] += time.perf_counter() - t1
+            t0 = time.perf_counter()
 
 
 def parse_opt(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--source", help="directory of [H,W,3] uint8 RGB .npy chips")
+    src.add_argument("--source", help="directory of [H,W,3] uint8 RGB .npy images")
     src.add_argument("--synthetic", type=int, default=0,
                      help="make N random chips from --seed")
+    p.add_argument("--mode", choices=["chips"], default="chips",
+                   help="chips: tile, detect per window, merge")
     p.add_argument("--weights", default="",
                    help=".npz of JAX variables or .pt port state_dict; "
                         "none = random weights from --seed")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--backbone", default="resnet50")
     p.add_argument("--num-classes", type=int, default=15)
-    p.add_argument("--batch-size", type=int, default=8)
-    p.add_argument("--img-size", type=int, default=1024)
-    p.add_argument("--dtype", choices=sorted(_DTYPES), default="bfloat16")
+    p.add_argument("--batch-size", type=int, default=8, help="windows per batch")
+    p.add_argument("--img-size", type=int, default=1024, help="window size")
+    p.add_argument("--gap", type=int, default=200, help="window overlap")
+    p.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
     p.add_argument("--device", default="cuda")
     p.add_argument("--conf", type=float, default=None,
                    help="score threshold (default: predict_score_thr, 0.3)")
-    p.add_argument("--iou-thres", type=float, default=None)
+    p.add_argument("--iou-thres", type=float, default=None,
+                   help="NMS threshold, also of the cross-chip merge")
     p.add_argument("--save-dir", default="runs/predict_torch")
     return p.parse_args(argv)
 
@@ -143,42 +220,34 @@ def main(argv=None) -> dict:
         score_thr=opt.conf if opt.conf is not None else cfg.predict_score_thr,
         nms_iou_thr=opt.iou_thres if opt.iou_thres is not None else cfg.nms_iou_thr,
     )
+    # the window slide img_size - gap stays positive
+    gap = min(opt.gap, opt.img_size // 2)
     names = (DOTA10_CLASSES if cfg.num_classes == len(DOTA10_CLASSES)
              else [str(i) for i in range(cfg.num_classes)])
     predictor = S2ANetPredictor(cfg, opt.weights, opt.device,
-                                _DTYPES[opt.dtype], opt.seed)
+                                DTYPES[opt.dtype], opt.seed)
     torch.backends.cudnn.benchmark = True  # fixed shapes: autotune the convs
     save_dir = Path(opt.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
 
-    n_chips = n_dets = 0
+    n_images = n_chips = n_dets = 0
+    timing: dict = {}
     t0 = time.perf_counter()
-    chips = _chips(opt)
-    while True:
-        group = [c for _, c in zip(range(opt.batch_size), chips)]
-        if not group:
-            break
-        imgs = np.stack([c for _, c in group])
-        if len(group) < opt.batch_size:  # pad to the fixed batch
-            pad = np.zeros((opt.batch_size - len(group),) + imgs.shape[1:], np.uint8)
-            imgs = np.concatenate([imgs, pad])
-        det_boxes, det_labels, det_valid = predictor.predict(imgs)
-        polys = rbox_to_poly(det_boxes[..., :5]).cpu().numpy()
-        scores = det_boxes[..., 5].cpu().numpy()
-        labels = det_labels.cpu().numpy()
-        valid = det_valid.cpu().numpy()
-        for k, (name, _) in enumerate(group):
-            lines = [
-                f"{names[c]} {s:.4f} " + " ".join(f"{v:.2f}" for v in poly)
-                for c, s, poly in zip(labels[k][valid[k]], scores[k][valid[k]],
-                                      polys[k][valid[k]])
-            ]
-            (save_dir / f"{name}.txt").write_text("".join(l + "\n" for l in lines))
-            print(f"{name}: {len(lines)} detections")
-            n_dets += len(lines)
-        n_chips += len(group)
-    summary = {"chips": n_chips, "detections": n_dets,
+    for name, n_windows, dets in serve_chips(
+            predictor, _inputs(opt), opt.img_size, gap, opt.batch_size,
+            cfg.nms_iou_thr, timing):
+        lines = [f"{names[c]} {s:.4f} " + " ".join(f"{v:.2f}" for v in poly)
+                 for c, s, poly in dets]
+        (save_dir / f"{name}.txt").write_text("".join(l + "\n" for l in lines))
+        print(f"{name}: {len(lines)} detections")
+        n_images += 1
+        n_chips += n_windows
+        n_dets += len(lines)
+    summary = {"images": n_images, "chips": n_chips, "detections": n_dets,
                "seconds": round(time.perf_counter() - t0, 3),
+               "model_seconds": round(timing["model"], 3),
+               "merge_seconds": round(timing["merge"], 3),
+               "native_polyiou": native.AVAILABLE,
                "device": str(predictor.device), "save_dir": str(save_dir)}
     print(json.dumps(summary))
     return summary

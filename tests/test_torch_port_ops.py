@@ -37,12 +37,39 @@ def _boxes(rng, n):
 
 
 def test_model_config_defaults_match_jax():
-    port = {f.name: f.default for f in dataclasses.fields(config.ModelConfig)}
-    ref = {f.name: f.default for f in dataclasses.fields(jax_config.ModelConfig)}
-    for name, value in port.items():
-        assert name in ref, name
-        assert value == ref[name], name
+    """ModelConfig, DataConfig and EvalConfig: every port field is a JAX
+    field with the same default; the class lists and presets are equal."""
+    for cls in ("ModelConfig", "DataConfig", "EvalConfig"):
+        port = {f.name: f.default for f in dataclasses.fields(getattr(config, cls))}
+        ref = {f.name: f.default for f in dataclasses.fields(getattr(jax_config, cls))}
+        for name, value in port.items():
+            assert name in ref, (cls, name)
+            assert value == ref[name], (cls, name)
     assert config.DOTA10_CLASSES == jax_config.DOTA10_CLASSES
+    assert config.NAMES_PRESETS == jax_config.NAMES_PRESETS
+    assert config.HRSC_CLASSES == jax_config.HRSC_CLASSES
+
+
+@pytest.mark.parametrize("names,num_classes", [
+    (None, None), ("hrsc", None), ("dota-v2.0", 15), (None, 4), (None, 17),
+    (("a", "b", "c"), 15), ("DOTA-v1.5", None)])
+def test_resolve_names_matches_load_config(names, num_classes):
+    """The names preset and names/num_classes rule of ``load_config``."""
+    over = {"model": {} if num_classes is None else {"num_classes": num_classes},
+            "data": {} if names is None else {"names": names}}
+    want = jax_config.load_config(None, over)
+    cfg = config.Config()
+    if num_classes is not None:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                 num_classes=num_classes))
+    if names is not None:
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, names=names))
+    got = config.resolve_names(cfg, names_explicit=names is not None)
+    assert tuple(got.data.names) == tuple(want.data.names)
+    assert got.model.num_classes == want.model.num_classes
+    with pytest.raises(ValueError, match="unknown names preset"):
+        config.resolve_names(dataclasses.replace(cfg, data=config.DataConfig(names="dotaa")),
+                             names_explicit=True)
 
 
 def test_norm_angle_matches_jax(rng):
