@@ -104,6 +104,26 @@ last line:
                against the bf16 plain path's, and against the float32
                labels the bf16 kernel path within 0.02 of the bf16 plain
                path (bf16 scores reorder random-weight near-ties)
+ 12. training run  32 train and 16 val synthetic 1024^2 DOTA-format chips
+               (s2anet_tpu_torch.data.synth, 15 classes), then
+               python -m s2anet_tpu_torch.train --config (configs/dota_r50.yaml
+               with save_period 1) --data-root --val-root --epochs 2
+               --batch-size 8: two results.csv rows with finite train and val
+               losses and a val mAP50; weights/last, best, deploy; launches
+               per train step as phase 9's (AlignConv 5/5, BN moments, pair,
+               apply and dx 53 each, IoU 2) and per validation batch
+               (AlignConv forward 5, IoU 2, NMS mask and sweep 1); a
+               --resume from weights/epoch0 runs epoch 1 only, with 8 updates,
+               the same LR and train losses within 5%; python -m
+               s2anet_tpu_torch.val --weights weights/deploy on the val chips
+               (folded BN) within 0.02 mAP50 of the trainer's last
+               validation. Prints the loop's ms/step (both epochs, and each
+               epoch to the device's end) beside phase 9's, the host's wait
+               for the loader per step, the loader's augmented images/s
+               alone (3 epochs), validation seconds and peak memory; then one
+               16-step epoch (128 chips, no validation) with 4 and with 1
+               loader threads: ms/step, the host's wait for the loader and
+               its median time to enqueue a step; deletes the data
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path (training, or serving for the NMS kernels; ``eval_launches``:
@@ -121,11 +141,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import struct
 import subprocess
 import sys
 import time
-import zlib
 from pathlib import Path
 from unittest import mock
 
@@ -916,21 +934,6 @@ def phase_step_vs_plain(torch, dev):
     return item_rel, max(bwd.values())
 
 
-def write_png(path: Path, rgb) -> None:
-    """An 8-bit RGB PNG: filter 0 on every row, one zlib stream."""
-    h, w, _ = rgb.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], 1)
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    path.write_bytes(b"\x89PNG\r\n\x1a\n"
-                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
-                     + chunk(b"IEND", b""))
-
-
 def draw_objects(rng, img, n: int, margin: int = 80):
     """``n`` filled rotated rectangles drawn on ``img`` (RGB), all inside
     the frame; returns their boxes ``[n, 5]`` (x, y, w, h, theta) and
@@ -955,6 +958,7 @@ def write_eval_data(root: Path, rng, n_chips: int, scene_hw):
     with BGR ``.npy`` sidecars written after them, ``labels/*.txt`` YOLO
     rotated) and one RGB ``.npy`` scene with its DOTA ``labelTxt``."""
     from s2anet_tpu_torch.config import DOTA10_CLASSES
+    from s2anet_tpu_torch.data.synth import write_png
     from s2anet_tpu_torch.ops.polyiou import rbox_vertices_np
 
     (root / "chips" / "images").mkdir(parents=True)
@@ -1230,6 +1234,169 @@ def phase_eval(torch, dev, out_dir):
           f"{scores['plain f32', 'plain bf16']:.4f} (|difference| {gap16:.4f} <= 0.02)")
     shutil.rmtree(root)  # 100 MB of images: keep the --out directory small
     return first_launches
+
+
+TRAIN_CHIPS, VAL_CHIPS = 32, 16  # phase 12: synthetic 1024^2 chips
+STEADY_CHIPS = 128  # phase 12: the train chips of its 16-step epoch
+
+
+def phase_train_loop(torch, out_dir, step_ms):
+    """The epoch loop (section 12 of the module docstring); ``step_ms`` is
+    phase 9's ms/step, printed beside the loop's."""
+    import csv
+    import dataclasses
+    import shutil
+
+    from s2anet_tpu_torch import val as port_val
+    from s2anet_tpu_torch.config import load_config
+    from s2anet_tpu_torch.data import synth
+    from s2anet_tpu_torch.data.dota import BatchLoader, DotaDataset
+    from s2anet_tpu_torch.train import __main__ as train_cli
+    from s2anet_tpu_torch.utils.callbacks import Callbacks
+
+    say("== 12. training run")
+    root = out_dir / "train_loop"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    synth.write_split(root / "train", TRAIN_CHIPS, rng, SIZE, 15, 3)
+    synth.write_split(root / "val", VAL_CHIPS, rng, SIZE, 15, 3)
+    say(f"   wrote {TRAIN_CHIPS} train and {VAL_CHIPS} val synthetic {SIZE}x{SIZE} chips "
+        f"(s2anet_tpu_torch.data.synth, 15 classes) in {time.perf_counter() - t0:.1f} s")
+    # configs/dota_r50.yaml, with a checkpoint every epoch for the resume check
+    cfg = load_config(ROOT / "configs" / "dota_r50.yaml")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, save_period=1))
+    cfg.save(root / "dota_r50_every_epoch.yaml")
+    images = {k: str(root / k / "images") for k in ("train", "val")}
+    args = ["--config", str(root / "dota_r50_every_epoch.yaml"), "--data-root",
+            images["train"], "--val-root", images["val"], "--epochs", "2", "--batch-size",
+            str(BATCH), "--seed", str(SEED)]
+    say(f"   python -m s2anet_tpu_torch.train {' '.join(args)} --save-dir .../run "
+        f"(configs/dota_r50.yaml with save_period 1)")
+
+    kernels = train_cli.KERNELS
+    counts = {"train": dict.fromkeys((k.symbol for k in kernels), 0), "val": None}
+    counts["val"] = dict(counts["train"])
+    mark = {}
+    hooks = Callbacks()
+    for kind, start, end in (("train", "on_train_batch_start", "on_train_batch_end"),
+                             ("val", "on_val_start", "on_val_end")):
+        def begin(kind=kind):
+            mark[kind] = {k.symbol: k.launches for k in kernels}
+
+        def finish(kind=kind):
+            for k in kernels:
+                counts[kind][k.symbol] += k.launches - mark[kind][k.symbol]
+        hooks.register_action(start, callback=begin)
+        hooks.register_action(end, callback=finish)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    summary = train_cli.main(args + ["--save-dir", str(root / "run")], callbacks=hooks)
+    wall = time.perf_counter() - t0
+    run = Path(summary["save_dir"])
+    with open(run / "results.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows for k in r if k.startswith(("train/", "val/"))]
+    check(len(rows) == 2 and all(np.isfinite(losses)) and len(losses) == 16
+          and all(0.0 <= float(r["metrics/mAP_0.5"]) <= 1.0 for r in rows),
+          f"2 results.csv rows, finite train and val losses, val mAP50 "
+          f"{[float(r['metrics/mAP_0.5']) for r in rows]}")
+    check(all((run / "weights" / n).is_file() for n in ("last", "best", "deploy", "epoch0")),
+          "weights/last, best, deploy (and epoch0) written")
+    steps = summary["steps"]
+    per = {k: v / steps for k, v in counts["train"].items()}
+    check(steps == 8 and per["s2a_deform_conv2d_fwd"] == 5 and per["s2a_deform_conv2d_bwd"] == 5
+          and per["s2a_channel_moments"] == 53 and per["s2a_grad_channel_sums"] == 53
+          and per["s2a_bn_apply"] == 53 and per["s2a_bn_dx"] == 53
+          and per["s2a_box_iou_rotated"] == 2 and per["s2a_nms_rotated_mask"] == 0,
+          f"{steps} train steps; launches per step {per} (as phase 9)")
+    val_batches = 2 * -(-VAL_CHIPS // cfg.eval.batch_size)
+    check(counts["val"] == {"s2a_deform_conv2d_fwd": 5 * val_batches,
+                            "s2a_deform_conv2d_bwd": 0, "s2a_box_iou_rotated": 2 * val_batches,
+                            "s2a_nms_rotated_mask": val_batches,
+                            "s2a_nms_rotated_sweep": val_batches, "s2a_channel_moments": 0,
+                            "s2a_grad_channel_sums": 0, "s2a_bn_apply": 0, "s2a_bn_dx": 0},
+          f"validation launches over {val_batches} batches {counts['val']}")
+    epoch_ms = [1000 * float(r["time/epoch_s"]) / (steps // 2) for r in rows]
+    say(f"   {wall:.1f} s in all; epoch loop {summary['ms_per_step']:.2f} ms/step over both "
+        f"epochs, to the device's end (epoch 0 {epoch_ms[0]:.2f}, epoch 1 {epoch_ms[1]:.2f}); "
+        f"phase 9's synthetic step {step_ms:.2f} ms/step in this run")
+    say(f"   the host's wait for the loader: {summary['loader_wait_ms_per_step']:.3f} ms/step; "
+        f"last validation {summary['val_seconds']:.2f} s ({VAL_CHIPS} chips, batch "
+        f"{cfg.eval.batch_size}); peak memory {summary['peak_memory_gib']:.2f} GiB")
+    say("   rows: " + "; ".join(
+        f"epoch {r['epoch_or_step']}: " + ", ".join(
+            f"{k} {float(v):.4g}" for k, v in r.items()
+            if k.startswith(("train/", "val/", "metrics/mAP", "lr/"))) for r in rows))
+
+    # the loader alone, augmented as the trainer loads (fliplr 0.5, rot90)
+    d = cfg.data
+    ds = DotaDataset(images["train"], img_size=d.img_size, max_gt=d.max_gt, augment=True,
+                     fliplr=d.fliplr, flipud=d.flipud, rot90=d.degrees > 0)
+    rates = []
+    for epoch in range(3):
+        loader = BatchLoader(ds, BATCH, shuffle=True, seed=SEED, drop_last=True)
+        loader.set_epoch(epoch)
+        t0 = time.perf_counter()
+        n = sum(len(b["paths"]) for b in loader)
+        rates.append(n / (time.perf_counter() - t0))
+    say(f"   the loader alone, augmented, {loader.num_workers} threads: {rate_spread(rates)}")
+
+    # the loop's steady state: one 16-step epoch (96 more chips beside the
+    # 32), no validation, with 4 loader threads and with 1; per step the
+    # host's time to enqueue it (from the batch-start to the batch-end hook)
+    synth.write_split(root / "more", STEADY_CHIPS - TRAIN_CHIPS, rng, SIZE, 15, 3)
+    listing = root / f"train_{STEADY_CHIPS}.txt"
+    listing.write_text("".join(f"{q}\n" for d in ("train", "more")
+                               for q in sorted((root / d / "images").glob("*.png"))))
+    for workers in (4, 1):
+        marks = {"on_train_batch_start": [], "on_train_batch_end": []}
+        steady = Callbacks()
+        for hook, ts in marks.items():
+            steady.register_action(hook, callback=lambda ts=ts: ts.append(time.perf_counter()))
+        s = train_cli.main(["--config", str(root / "dota_r50_every_epoch.yaml"), "--data-root",
+                            str(listing), "--epochs", "1", "--noval", "--workers", str(workers),
+                            "--batch-size", str(BATCH), "--seed", str(SEED), "--save-dir",
+                            str(root / f"steady{workers}")], callbacks=steady)
+        enqueue = np.subtract(marks["on_train_batch_end"], marks["on_train_batch_start"])
+        say(f"   one {s['steps']}-step epoch, {workers} loader thread(s), no validation: "
+            f"{s['ms_per_step']:.2f} ms/step to the device's end (phase 9: {step_ms:.2f}); "
+            f"the host waits {s['loader_wait_ms_per_step']:.2f} ms a step for the loader and "
+            f"enqueues a step in {1000 * np.median(enqueue):.2f} ms (median)")
+
+    # resume from epoch 0's checkpoint into a new run dir: epoch 1 only
+    for k in kernels:
+        k.launches = 0
+    resumed = train_cli.main(args + ["--save-dir", str(root / "resumed"), "--resume",
+                                     str(run / "weights" / "epoch0")])
+    with open(Path(resumed["save_dir"]) / "results.csv", newline="") as f:
+        rrows = list(csv.DictReader(f))
+    rel = max(abs(float(rrows[0][k]) / float(rows[1][k]) - 1)
+              for k in rows[1] if k.startswith("train/"))
+    check(resumed["steps"] == 4 and resumed["updates"] == summary["updates"] == 8
+          and len(rrows) == 1 and rrows[0]["epoch_or_step"] == "1"
+          and rrows[0]["lr/0"] == rows[1]["lr/0"] and rel < 0.05,
+          f"--resume weights/epoch0: {resumed['steps']} steps (epoch 1 only), "
+          f"{resumed['updates']} updates, lr {rrows[0]['lr/0']} (straight run "
+          f"{rows[1]['lr/0']}), train losses within {rel:.2%} of the straight run's "
+          f"(the AlignConv dx sums with atomics: not bit-equal on the card)")
+
+    # the deploy weights through python -m s2anet_tpu_torch.val (folded BN,
+    # bf16 cast) against the trainer's last validation (live BN, f32 master
+    # weights computing in bf16)
+    vargs = ["--config", str(ROOT / "configs" / "dota_r50.yaml"), "--weights",
+             str(run / "weights" / "deploy"), "--data-root", images["val"]]
+    say(f"   python -m s2anet_tpu_torch.val {' '.join(vargs)}")
+    out = port_val.main(vargs)
+    last = float(rows[-1]["metrics/mAP_0.5"])
+    check(abs(out["map50"] - last) <= 0.02,
+          f"val on the deploy weights mAP50 {out['map50']:.4f}, the trainer's last "
+          f"validation {last:.4f}")
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return summary
 
 
 def main(argv=None) -> int:
@@ -1738,6 +1905,7 @@ def main(argv=None) -> int:
 
     phase_step_vs_plain(torch, dev)
     eval_launches = phase_eval(torch, dev, out_dir)
+    phase_train_loop(torch, out_dir, train_summary["ms_per_step"])
 
     say(card)
     src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"

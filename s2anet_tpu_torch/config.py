@@ -1,18 +1,27 @@
 """Configuration: the serving and training fields of the JAX ``ModelConfig``,
 a copy of its ``TrainConfig``, and the fields of its ``DataConfig`` and
-``EvalConfig`` that evaluation reads.
+``EvalConfig`` that training and evaluation read.
 
 Same names and defaults as ``s2anet_tpu/utils/config.py`` (a test holds them
-equal); the int8 and TPU-implementation fields, augmentation, rect batching
-and the YAML loader are left out. :func:`resolve_names` is ``load_config``'s
-rule for class-name presets and the class count.
+equal); the int8 and TPU-implementation fields and rect batching are left
+out. :func:`load_config` reads the repository's YAML files
+(``configs/*.yaml``) with :mod:`.yaml_lite`, since the machine with the card
+has no pyyaml, merges overrides into the defaults and applies the class-name
+rule (:func:`resolve_names`). A file that sets a JAX-only field away from
+its default to something the port does not run (``with_orconv: false``,
+``bn_stats_images``, ``quant``, ``eval.rect``) is refused rather than
+ignored; the JAX-only implementation switches (``deform_impl``, ``bn_impl``
+and the like) have nothing to switch here and are ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Sequence
+from pathlib import Path
+from typing import Optional, Sequence
+
+from . import yaml_lite
 
 
 @dataclass
@@ -94,7 +103,8 @@ NAMES_PRESETS = {
 @dataclass
 class DataConfig:
     root: str = ""
-    val_list: str = ""                # txt of val image paths (YOLO layout)
+    train_list: str = ""              # txt of train image paths (YOLO layout)
+    val_list: str = ""
     # class names, or a preset key ("dota", "dota-v1.5", "dota-v2.0", "hrsc")
     names: Sequence[str] = DOTA10_CLASSES
     img_size: int = 1024
@@ -102,6 +112,18 @@ class DataConfig:
     # image source: "" (BGR .npy sidecars, else PIL) | "packed" (data/dota.py)
     cache: str = ""
     workers: int = 0                  # loader threads (0 = auto)
+    loader: str = "thread"            # "thread" only ("process" is not ported)
+    # augmentation (the published recipe: fliplr + 90-degree rotation)
+    fliplr: float = 0.5
+    flipud: float = 0.0
+    degrees: float = 180.0            # >0 enables random 90-degree-multiple rotation
+    hsv_h: float = 0.0
+    hsv_s: float = 0.0
+    hsv_v: float = 0.0
+    mosaic: float = 0.0
+    mixup: float = 0.0
+    translate: float = 0.0
+    scale: float = 0.0
     val_gt_dir: str = ""              # per-image DOTA labelTxt dir (merge mode)
 
 
@@ -109,18 +131,37 @@ class DataConfig:
 class EvalConfig:
     batch_size: int = 16
     is_map_split: bool = True         # evaluate against split-chip GT
+    conf_thres: float = 0.05
     iou_thres: float = 0.5            # TP matching IoU
     merge_nms_thr: float = 0.5        # cross-chip polygon NMS
     use_07_metric: bool = True        # 11-point VOC AP
+    save_results: bool = False        # dump per-class DOTA-format txt files
     task: int = 1                     # 1 = oriented (Task1), 2 = horizontal
 
 
 @dataclass
 class Config:
-    """What evaluation reads."""
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def save(self, path) -> None:
+        """Write ``config.yaml``: :func:`load_config` and ``yaml.safe_load``
+        both read it back to :meth:`to_dict` (tuples as lists)."""
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(yaml_lite.dump(self.to_dict()))
+
+
+# JAX-only fields whose other values change what is computed; the port runs
+# only these values
+UNPORTED = {
+    "model": {"with_orconv": True, "bn_stats_images": 0, "quant": "none"},
+    "eval": {"rect": False},
+}
 
 
 def resolve_names(cfg: Config, names_explicit: bool) -> Config:
@@ -145,3 +186,56 @@ def resolve_names(cfg: Config, names_explicit: bool) -> Config:
                 f"class{i}" for i in range(len(names), model.num_classes))
     return dataclasses.replace(cfg, model=model,
                                data=dataclasses.replace(cfg.data, names=names))
+
+
+def prune_overrides(d: dict) -> dict:
+    """Drop ``None`` leaves (and then-empty sub-dicts) from an override
+    tree: a CLI flag the user did not type never replaces a value from
+    ``--config``."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            v = prune_overrides(v)
+            if v:
+                out[k] = v
+        elif v is not None:
+            out[k] = v
+    return out
+
+
+def _merge(dc, overrides: dict):
+    kwargs = {}
+    for f in dataclasses.fields(dc):
+        if f.name in overrides:
+            v = overrides[f.name]
+            if dataclasses.is_dataclass(getattr(dc, f.name)):
+                v = _merge(getattr(dc, f.name), v)
+            kwargs[f.name] = v
+    return dataclasses.replace(dc, **kwargs)
+
+
+def _check_unported(tree: dict, source: str) -> None:
+    for section, fields in UNPORTED.items():
+        for name, value in fields.items():
+            got = (tree.get(section) or {}).get(name, value)
+            if got != value:
+                raise NotImplementedError(
+                    f"{source}: {section}.{name} = {got!r} is not ported (the port "
+                    f"runs {value!r}); see ROADMAP.md Queue 1")
+
+
+def load_config(path=None, overrides: Optional[dict] = None) -> Config:
+    """Defaults, then the YAML file at ``path``, then ``overrides``; class
+    names resolved as ``s2anet_tpu/utils/config.py::load_config`` does."""
+    cfg = Config()
+    names_explicit = False
+    if path:
+        loaded = yaml_lite.load(Path(path).read_text()) or {}
+        _check_unported(loaded, str(path))
+        names_explicit |= "names" in (loaded.get("data") or {})
+        cfg = _merge(cfg, loaded)
+    if overrides:
+        _check_unported(overrides, "overrides")
+        names_explicit |= bool((overrides.get("data") or {}).get("names"))
+        cfg = _merge(cfg, overrides)
+    return resolve_names(cfg, names_explicit)

@@ -129,18 +129,23 @@ class BatchPipeline:
     on a CUDA device): :meth:`slot` returns the slot once batch ``i - n``
     has been read from it, and may be called from a loader thread. The
     caller fills the slot, pads it to B rows, and passes ``(b, meta)`` to
-    :meth:`run`, which submits it and yields batch i-1's outputs once batch
-    i is submitted. On a CUDA device the slot is copied to the card on a
-    side stream (the compute stream waits for that copy only) and the
-    outputs into alternating pinned host buffers, read after their batch's
-    event; elsewhere the step runs as it is called. Use it as a context
-    manager: leaving it releases any loader thread still waiting.
+    :meth:`run`, which submits it (``step(x)``, or ``step(x, meta)`` with
+    ``with_batch``) and yields batch i-1's outputs once batch i is
+    submitted. On a CUDA device the slot is copied to the card on a side
+    stream (the compute stream waits for that copy only) and the outputs
+    into alternating pinned host buffers, read after their batch's event;
+    elsewhere the step runs as it is called. The trainer takes the staged
+    batches alone (:meth:`stage`; ``step`` None, ``device`` given). Use it
+    as a context manager: leaving it releases any loader thread still
+    waiting.
     """
 
-    def __init__(self, step, batch_size: int, img_size: int, n: int = PREFETCH + 2):
-        self.device = getattr(step, "device", None)
+    def __init__(self, step, batch_size: int, img_size: int, n: int = PREFETCH + 2,
+                 device=None, with_batch: bool = False):
+        self.device = device if device is not None else getattr(step, "device", None)
         self.cuda = self.device is not None and self.device.type == "cuda"
         self.fn = getattr(step, "predict", step)
+        self.with_batch = with_batch  # the step also takes the batch (its gts)
         self.n = n
         self.bufs = [torch.empty((batch_size, img_size, img_size, 3), dtype=torch.uint8,
                                  pin_memory=self.cuda) for _ in range(n)]
@@ -167,13 +172,15 @@ class BatchPipeline:
             self._read[i % self.n] = i
             self._cond.notify_all()
 
-    def _submit(self, i: int):
-        """Run the step on slot ``i % n``; returns a handle for :meth:`_fetch`."""
+    def stage(self, i: int) -> torch.Tensor:
+        """Slot ``i % n`` as a uint8 tensor on the device, the slot released
+        to the loader. On a CUDA device the copy runs on the side stream and
+        the compute stream waits for it; elsewhere it is a copy."""
         s = i % self.n
         if not self.cuda:
-            out = self.fn(self.views[s])
+            x = self.bufs[s].clone()
             self._release(i)
-            return out
+            return x
         compute = torch.cuda.current_stream(self.device)
         copied = torch.cuda.Event()
         with torch.cuda.stream(self.stream):
@@ -182,7 +189,16 @@ class BatchPipeline:
         compute.wait_event(copied)
         x.record_stream(compute)  # x is freed only after the compute stream used it
         self._release(i, copied)
-        outs = self.fn(x)
+        return x
+
+    def _submit(self, i: int, meta):
+        """Run the step on slot ``i % n``; returns a handle for :meth:`_fetch`."""
+        extra = (meta,) if self.with_batch else ()
+        if not self.cuda:
+            out = self.fn(self.views[i % self.n], *extra)
+            self._release(i)
+            return out
+        outs = self.fn(self.stage(i), *extra)
         if self._host[i % 2] is None:
             self._host[i % 2] = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                                  for t in outs]
@@ -194,15 +210,17 @@ class BatchPipeline:
         return host, done
 
     def _fetch(self, handle, b: int, meta, seconds):
-        """``(det_boxes, det_labels, det_valid)`` of a submitted batch, its
-        ``b`` real rows, as NumPy arrays (on a CUDA device, views of pinned
-        buffers that batch i + 2 overwrites)."""
+        """``(det_boxes, det_labels, det_valid[, loss_items])`` of a
+        submitted batch, the detections cut to its ``b`` real rows, as NumPy
+        arrays (on a CUDA device, views of pinned buffers that batch i + 2
+        overwrites)."""
         t0 = time.perf_counter()
         if self.cuda:
             host, done = handle
             done.synchronize()
             handle = [h.numpy() for h in host]
-        outs = tuple(np.asarray(a)[:b] for a in handle)
+        outs = tuple(np.asarray(a)[:b] for a in handle[:3]) + tuple(
+            np.asarray(a) for a in handle[3:])
         seconds["device_wait"] += time.perf_counter() - t0
         return outs, b, meta
 
@@ -216,7 +234,7 @@ class BatchPipeline:
         t0 = time.perf_counter()
         for i, (b, meta) in enumerate(batches):
             seconds["loader_wait"] += time.perf_counter() - t0
-            handle = self._submit(i)
+            handle = self._submit(i, meta)
             if pending is not None:
                 yield self._fetch(*pending, seconds)  # batch i-1, while batch i runs
             pending = (handle, b, meta)
@@ -271,11 +289,16 @@ def score_detections(chip_dets, cfg, dataset: Optional[DotaDataset] = None,
 
 
 def evaluate_on_chips(step, cfg, dataset: Optional[DotaDataset] = None,
-                      save_dir=None, verbose: bool = False):
+                      save_dir=None, verbose: bool = False, with_loss: bool = False):
     """Run detection over the val chips and compute mAP50.
 
     ``step`` is an :class:`..predict.S2ANetPredictor` or a callable from a
     uint8 RGB batch to detection buffers; ``cfg`` a :class:`..config.Config`.
+    With ``with_loss`` it is called as ``step(imgs, batch)`` and returns the
+    four loss items ``[4]`` after the detection buffers; the result then
+    holds ``val/{fam,odm}_{cls,reg}_loss``, their mean over the real images
+    (a partial batch, padded by wrapping its real images and gts, weighs as
+    its real count).
     Returns dict(map50, mp, mr, per_class, images_per_sec, n_images,
     seconds (the loop's wall time and the host's waits for the loader and
     the device and its post-processing), and chip_dets: {chip: [(class_id,
@@ -287,29 +310,36 @@ def evaluate_on_chips(step, cfg, dataset: Optional[DotaDataset] = None,
         cfg.data.val_list or cfg.data.root, img_size=cfg.data.img_size,
         max_gt=cfg.data.max_gt, cache_images=cfg.data.cache)
     bs = cfg.eval.batch_size
-    pipeline = BatchPipeline(step, bs, dataset.img_size)
+    pipeline = BatchPipeline(step, bs, dataset.img_size, with_batch=with_loss)
     loader = BatchLoader(dataset, bs, num_workers=cfg.data.workers or None,
                          staging=pipeline)
 
     def batches():
         for i, batch in enumerate(loader):
             b = len(batch["paths"])
-            if b < bs:  # pad by wrapping the real images
+            if b < bs:  # pad by wrapping the real images (and their gts)
+                sel = np.arange(bs - b) % b
                 view = pipeline.slot(i)
-                view[b:] = view[np.arange(bs - b) % b]
+                view[b:] = view[sel]
+                for key in ("gt_boxes", "gt_classes", "gt_mask"):
+                    batch[key] = np.concatenate([batch[key], batch[key][sel]], 0)
             yield b, batch
 
     chip_dets: Dict[str, list] = {}
     chip_dims: Dict[str, tuple] = {}
     n_imgs = 0
+    mean_loss = np.zeros(4)
     # host seconds: waiting for the loader, waiting for the device's
     # outputs, and post-processing them
     seconds = {"loader_wait": 0.0, "device_wait": 0.0, "post": 0.0}
     t_wall0 = time.perf_counter()
     with pipeline:
-        for (det_boxes, det_labels, det_valid), b, batch in pipeline.run(batches(), seconds):
+        for outs, b, batch in pipeline.run(batches(), seconds):
             # post-processing of batch i-1 while the device runs batch i
             t0 = time.perf_counter()
+            det_boxes, det_labels, det_valid = outs[:3]
+            if with_loss:  # running mean weighted by the real images
+                mean_loss += (outs[3] - mean_loss) * (b / (n_imgs + b))
             n_imgs += b
             for k in range(b):
                 chip_name = Path(batch["paths"][k]).stem
@@ -336,6 +366,10 @@ def evaluate_on_chips(step, cfg, dataset: Optional[DotaDataset] = None,
     out["n_images"] = n_imgs
     out["seconds"] = dict(seconds, loop=t_infer)
     out["chip_dets"] = chip_dets
+    if with_loss and n_imgs:
+        for i, key in enumerate(("val/fam_cls_loss", "val/fam_reg_loss",
+                                 "val/odm_cls_loss", "val/odm_reg_loss")):
+            out[key] = float(mean_loss[i])
     if verbose:
         for cname, res in out["per_class"].items():
             print(f"{cname:20s} AP50 {res['ap']:.4f}")

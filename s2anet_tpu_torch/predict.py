@@ -44,6 +44,7 @@ from .models.convert import load_jax_npz, state_dict_from_jax
 from .models.detector import S2ANet
 from .models.fold import fold_bn
 from .models.head import s2anet_get_bboxes
+from .train.step import scale_images
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -87,10 +88,9 @@ class S2ANetPredictor:
 
     def to_input(self, imgs) -> torch.Tensor:
         """``[B, H, W, 3]`` uint8 RGB (numpy or tensor) -> ``[B, 3, H, W]``
-        in the compute type, scaled by 1/255, channels-last on the device."""
-        x = torch.as_tensor(imgs).to(self.device)
-        x = (x.float() / 255.0).to(self.dtype)
-        return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        in the compute type, scaled by float32(1/255) as the JAX loader
+        scales, channels-last on the device."""
+        return scale_images(torch.as_tensor(imgs).to(self.device), self.dtype)
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor):

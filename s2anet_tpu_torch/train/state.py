@@ -5,7 +5,10 @@ after update number ``step`` (counted after the increment) every floating
 entry of the state dict -- parameters, BN running means and variances --
 moves as ``ema = ema * d + new * (1 - d)`` with
 ``d = decay * (1 - exp(-step / ramp))``. Integer buffers
-(``num_batches_tracked``) are copied.
+(``num_batches_tracked``) are copied. Under gradient accumulation the
+caller blends only on the micro-steps that update (the JAX rule blends the
+others with ``d = 1``, which leaves the average as it is), and ``step``
+counts updates.
 """
 
 from __future__ import annotations

@@ -2,10 +2,11 @@
 
 Counterpart of ``s2anet_tpu/parallel/step.py::make_train_step`` without a
 mesh: forward in train mode, assignment and loss, backward, clipping, SGD
-and the EMA. Nothing in the step waits for the device: the loss
-normalisation stays on the device, and the one data-dependent choice of the
-JAX step (the gt tier of 64) is made on the host from the batch's numpy
-mask by :func:`to_device`.
+and the EMA (one micro-step under gradient accumulation: the EMA moves
+only when the optimizer updates). Nothing in the step waits for the
+device: the loss normalisation stays on the device, and the one
+data-dependent choice of the JAX step (the gt tier of 64) is made on the
+host from the batch's numpy mask by :func:`to_device`.
 """
 
 from __future__ import annotations
@@ -20,12 +21,25 @@ from .optim import Optimizer
 from .state import ModelEMA
 
 GT_TIER = 64
+# the JAX loader's scale (``rgb *= 1.0 / 255.0`` on a float32 array): a
+# product by this float32 constant, not a division by 255 (1 ulp apart)
+INV255 = float(np.float32(1.0 / 255.0))
 
 
-def to_device(batch, device, dtype: torch.dtype):
-    """A numpy batch (``imgs [B, H, W, 3]`` in [0, 1], ``gt_boxes [B, G, 5]``,
-    ``gt_classes [B, G]``, ``gt_mask [B, G]``, real gts first) -> tensors on
-    ``device``: images ``[B, 3, H, W]`` channels-last in ``dtype``.
+def scale_images(imgs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """uint8 RGB ``[B, H, W, 3]`` -> ``[B, 3, H, W]`` channels-last in
+    ``dtype``: times float32(1/255) in float32, then cast."""
+    return imgs.float().mul_(INV255).to(dtype).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def to_device(batch, device, dtype: torch.dtype, imgs: torch.Tensor = None):
+    """A numpy batch (``imgs [B, H, W, 3]``: float in [0, 1] or uint8 RGB,
+    ``gt_boxes [B, G, 5]``, ``gt_classes [B, G]``, ``gt_mask [B, G]``, real
+    gts first) -> tensors on ``device``: images ``[B, 3, H, W]``
+    channels-last in ``dtype``. ``imgs``, when given, replaces the batch's
+    images (a uint8 batch already on the device). Nothing waits for the
+    copies.
 
     When every image has at most 64 real gts, only the first 64 gt columns
     go to the device: the JAX step's ``lax.cond`` gt tier, decided here once
@@ -33,17 +47,21 @@ def to_device(batch, device, dtype: torch.dtype):
     """
     g = batch["gt_mask"].shape[1]
     k = GT_TIER if g > GT_TIER and batch["gt_mask"].sum(1).max() <= GT_TIER else g
-    imgs = torch.from_numpy(np.ascontiguousarray(batch["imgs"])).permute(0, 3, 1, 2)
-    return {
-        "imgs": imgs.to(device=device, dtype=dtype).contiguous(
-            memory_format=torch.channels_last),
-        "gt_boxes": torch.from_numpy(np.ascontiguousarray(
-            batch["gt_boxes"][:, :k], np.float32)).to(device),
-        "gt_classes": torch.from_numpy(np.ascontiguousarray(
-            batch["gt_classes"][:, :k], np.int64)).to(device),
-        "gt_mask": torch.from_numpy(np.ascontiguousarray(
-            batch["gt_mask"][:, :k], bool)).to(device),
-    }
+    if imgs is None:
+        imgs = torch.from_numpy(np.ascontiguousarray(batch["imgs"]))
+    imgs = imgs.to(device, non_blocking=True)
+    if imgs.dtype == torch.uint8:
+        imgs = scale_images(imgs, dtype)
+    else:
+        imgs = imgs.permute(0, 3, 1, 2).to(dtype=dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    def put(key, np_dtype):
+        a = np.ascontiguousarray(batch[key][:, :k], np_dtype)
+        return torch.from_numpy(a).to(device, non_blocking=True)
+
+    return {"imgs": imgs, "gt_boxes": put("gt_boxes", np.float32),
+            "gt_classes": put("gt_classes", np.int64), "gt_mask": put("gt_mask", bool)}
 
 
 def train_step(model: nn.Module, optimizer: Optimizer, ema: ModelEMA, batch,
@@ -62,5 +80,6 @@ def train_step(model: nn.Module, optimizer: Optimizer, ema: ModelEMA, batch,
     optimizer.zero_grad()
     total.backward()
     optimizer.step()
-    ema.update(model, optimizer.count)
+    if optimizer.synced:
+        ema.update(model, optimizer.count)
     return items.detach()

@@ -18,12 +18,13 @@ import torch
 
 from s2anet_tpu_torch.config import Config, DataConfig, EvalConfig, ModelConfig
 from s2anet_tpu_torch.data.dota import DotaDataset
+from s2anet_tpu_torch.data.synth import write_png
 from s2anet_tpu_torch.eval import runner
 from s2anet_tpu_torch.predict import S2ANetPredictor, serve_chips
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import chip_smoke  # noqa: E402  (its PNG writer and drawn objects)
+import chip_smoke  # noqa: E402  (its drawn objects)
 
 pytestmark = pytest.mark.cuda
 SIZE = 256
@@ -40,7 +41,7 @@ def chips(tmp_path_factory):
         img = rng.integers(0, 90, (SIZE, SIZE, 3), dtype=np.uint8)
         chip_smoke.draw_objects(rng, img, 4, margin=60)
         png = root / "images" / f"c{i:02d}.png"
-        chip_smoke.write_png(png, img)
+        write_png(png, img)
         np.save(png.with_suffix(".npy"), img[:, :, ::-1])
     return root / "images"
 
