@@ -123,15 +123,39 @@ last line:
                alone (3 epochs), validation seconds and peak memory; then one
                16-step epoch (128 chips, no validation) with 4 and with 1
                loader threads: ms/step, the host's wait for the loader and
-               its median time to enqueue a step; deletes the data
+               its median time to enqueue a step
+ 13. int8 serving  on phase 11's chips (then deleted): R-50 1024^2 batch 8
+               bf16, folded BN, calibrated on 4 batches, in the default scope
+               (backbone, neck, head_stacks) and the full one (+ orconv,
+               heads): launches a serving batch (quantiser and int8 conv 100
+               / 125, AlignConv 5); on every distinct quantised conv and
+               activation shape of a batch, both kernels against their plain
+               versions, bit for bit; per shape the conv kernel's time against
+               its bound (bytes over 3.35 TB/s or int8 operations over 1,979
+               TOPS) with torch._int_mm (1x1, or a prebuilt im2col for 3x3,
+               not timed) and cuDNN's bf16 convolution of the shape as
+               yardsticks, summed over a batch (table in --out
+               chip_smoke_int8.txt), the quantiser against its byte bound;
+               at batch 2 the kernel path against the path with the int8
+               convs and quantiser plain (>= 95% of detections matched 1:1
+               by rotated IoU >= 0.5); int8 against bf16 head outputs in
+               units of max(|bf16|, 0.05): odm_cls within 0.07 (the JAX
+               package's R-18 bar), odm_bbox within 0.5 (the JAX package's
+               own R-50 int8 path moves it 0.28 at 128^2); chips/s of
+               bf16, int8 default and int8 full at score_thr 0.05 and 0.005 in
+               turns; a profiled batch of each (launches, idle share); python
+               -m s2anet_tpu_torch.val --quant int8 on the chips (launches,
+               mAP50 against the labels made from the bf16 plain path) and
+               over the listed chips (images/s beside phase 11's bf16)
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
-on its path (training, or serving for the NMS kernels; ``eval_launches``:
-the val run of phase 11 for the kernels on that path), its largest error
+on its path (training, or serving for the NMS kernels, ``val --quant int8``
+for the int8 kernels; ``eval_launches``: the val run of phase 11 for the
+kernels on that path), its largest error
 against the plain version, its time, the plain version's and the library
 call's time where there is one, and the least time the card could take
 (``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
-over 989 TFLOP/s bf16 or 67 TFLOP/s f32, H100 SXM). Every time is the
+over 989 TFLOP/s bf16, 1,979 TOPS int8 or 67 TFLOP/s f32, H100 SXM). Every time is the
 median of 5 timed loops (CUDA events); lines give the spread. The last
 line is ``{"ok": true, "device": {...}}``. Exits 1 without a CUDA device.
 """
@@ -141,6 +165,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1044,11 +1069,12 @@ def loop_split(out) -> str:
             f"post-processing {sec['post']:.3f} s")
 
 
-def phase_eval(torch, dev, out_dir):
+def phase_eval(torch, dev, out_dir, keep: bool = False):
     """The evaluation path (section 11 of the module docstring); returns the
-    val run's launches of the kernels on its path."""
+    val run's launches of the kernels on its path, the data's directory
+    (deleted unless ``keep``) and the images/s of the val run over the
+    listed chips."""
     import dataclasses
-    import shutil
 
     from s2anet_tpu_torch import native
     from s2anet_tpu_torch import predict as port_predict
@@ -1232,8 +1258,362 @@ def phase_eval(torch, dev, out_dir):
           f"against the float32 plain path's labels, bf16 scores by its dtype, not its "
           f"kernels: kernel {scores['plain f32', 'kernel bf16']:.4f}, plain "
           f"{scores['plain f32', 'plain bf16']:.4f} (|difference| {gap16:.4f} <= 0.02)")
-    shutil.rmtree(root)  # 100 MB of images: keep the --out directory small
-    return first_launches
+    if not keep:
+        shutil.rmtree(root)  # 100 MB of images: keep the --out directory small
+    return first_launches, root, runs[1][0]["images_per_sec"]
+
+
+INT8_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+
+
+def int8_conv_key(xq, wq, stride, pad, dtype, bias) -> tuple:
+    """(B, H, W, Cin, Cout, k, stride, pad, output type, bias) of a call."""
+    return tuple(xq.shape) + (wq.shape[0], wq.shape[1], stride, pad,
+                              str(dtype).replace("torch.", ""), bias is not None)
+
+
+def record_int8(pq, fn):
+    """Run ``fn`` with the int8 wrappers of ``ops/quant.py`` recording each
+    distinct conv and quantiser call: ``{key: [calls, first call's
+    arguments]}`` for the convs and for the quantiser (the calls still run
+    the kernels)."""
+    convs, quants = {}, {}
+    real_q, real_c = pq.quantize_act, pq.int8_conv2d
+
+    def quantize(x, s, zp):
+        e = quants.setdefault((tuple(x.shape), str(x.dtype).replace("torch.", "")), [0, None])
+        e[0] += 1
+        e[1] = e[1] or (x, s, zp)
+        return real_q(x, s, zp)
+
+    def conv(xq, wq, mul, corr, zp, stride, pad, dtype, bias=None):
+        e = convs.setdefault(int8_conv_key(xq, wq, stride, pad, dtype, bias), [0, None])
+        e[0] += 1
+        e[1] = e[1] or (xq, wq, mul, corr, zp, stride, pad, dtype, bias)
+        return real_c(xq, wq, mul, corr, zp, stride, pad, dtype, bias)
+
+    with mock.patch.object(pq, "quantize_act", quantize), mock.patch.object(
+            pq, "int8_conv2d", conv):
+        fn()
+    return convs, quants
+
+
+def im2col_int8(torch, xq, k: int, stride: int, pad: int, zp: int):
+    """``[B*Ho*Wo, k*k*Cin]`` int8 rows of the taps (ky, kx, ci) of each
+    output position, padded with ``zp``: the A operand of ``torch._int_mm``
+    for a k x k conv."""
+    import torch.nn.functional as F
+
+    b, h, w, c = xq.shape
+    xp = F.pad(xq.permute(0, 3, 1, 2), (pad,) * 4, value=zp).permute(0, 2, 3, 1)
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    cols = [xp[:, ky:ky + stride * (ho - 1) + 1:stride, kx:kx + stride * (wo - 1) + 1:stride]
+            for ky in range(k) for kx in range(k)]
+    return torch.cat(cols, -1).reshape(b * ho * wo, k * k * c).contiguous()
+
+
+def phase_quant(torch, dev, out_dir, root, bf16_listed_rate):
+    """int8 serving (section 13 of the module docstring) on phase 11's data
+    in ``root``; returns the rows of its two kernels for the kernels line."""
+    import torch.nn.functional as F
+
+    from s2anet_tpu_torch import predict as port_predict
+    from s2anet_tpu_torch import val as port_val
+    from s2anet_tpu_torch.config import ModelConfig
+    from s2anet_tpu_torch.data.dota import DotaDataset
+    from s2anet_tpu_torch.eval.runner import calibration_batches
+    from s2anet_tpu_torch.ops import deform_conv as dc
+    from s2anet_tpu_torch.ops import quant as pq
+    from s2anet_tpu_torch.ops.iou_rotated import box_iou_rotated_plain
+
+    say("== 13. int8 serving")
+    card = card_line()
+    say(f"   card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = True
+    images = root / "chips" / "images"
+    listed = root / "chips" / f"val_x{LISTED}.txt"
+    calib = calibration_batches(DotaDataset(listed, img_size=SIZE), BATCH, 4)
+    scopes = {"default": pq.QUANT_SCOPE_DEFAULT, "full": pq.QUANT_SCOPE_ALL}
+    preds = {"bf16": port_predict.S2ANetPredictor(ModelConfig(), device="cuda", seed=SEED)}
+    for name, scope in scopes.items():
+        p = port_predict.S2ANetPredictor(ModelConfig(quant="int8", quant_scope=scope),
+                                         device="cuda", seed=SEED)
+        t0 = time.perf_counter()
+        ranges = p.calibrate(calib)
+        torch.cuda.synchronize()
+        say(f"   int8 {name} scope {','.join(scope)}: R-50 1024^2 bf16, folded BN, calibrated "
+            f"on 4 batches of 8 of phase 11's chips in {time.perf_counter() - t0:.2f} s "
+            f"({len(ranges)} quantised convs)")
+        preds[name] = p
+    imgs = calib[0]
+    x = preds["bf16"].to_input(imgs)
+    kernels = (pq.QUANTIZE, pq.CONV)
+
+    # launches a serving batch
+    per_batch = {}
+    for name in scopes:
+        for k in kernels + (dc.DEFORM_FWD,):
+            k.launches = 0
+        preds[name].predict(imgs)
+        torch.cuda.synchronize()
+        per_batch[name] = {k.symbol: k.launches for k in kernels + (dc.DEFORM_FWD,)}
+    check(per_batch["default"] == {"s2a_quantize_act": 100, "s2a_int8_conv2d": 100,
+                                   "s2a_deform_conv2d_fwd": 5}
+          and per_batch["full"] == {"s2a_quantize_act": 125, "s2a_int8_conv2d": 125,
+                                    "s2a_deform_conv2d_fwd": 5},
+          f"launches a serving batch: default scope {per_batch['default']}, full scope "
+          f"{per_batch['full']} (52 backbone + 8 FPN + 40 stack convs; + 5 ORConv + 20 heads)")
+
+    # every distinct quantised conv shape: kernel against plain, bit for bit
+    counts = {}
+    for name in scopes:  # the full scope's last: it calls every shape of the default one
+        convs, quants = record_int8(pq, lambda: preds[name].forward(x))
+        counts[name] = ({k: v[0] for k, v in convs.items()}, {k: v[0] for k, v in quants.items()})
+    conv_err = q_err = 0.0
+    n_equal = 0
+    for key, (_, args) in quants.items():
+        got = pq.quantize_act_cuda(*args)
+        torch.cuda.synchronize()
+        want = pq.quantize_act_plain(*args)
+        q_err = max(q_err, (got.int() - want.int()).abs().max().item())
+        n_equal += torch.equal(got, want)
+    check(n_equal == len(quants), f"quantiser on the {len(quants)} distinct activation shapes "
+          f"of a batch: kernel == plain bit for bit on {n_equal} (max |code difference| "
+          f"{q_err})")
+    n_equal = 0
+    for key, (_, args) in convs.items():
+        got = pq.int8_conv2d_cuda(*args)
+        torch.cuda.synchronize()
+        want = pq.int8_conv2d_plain(*args)
+        conv_err = max(conv_err, (got.float() - want.float()).abs().max().item())
+        n_equal += torch.equal(got, want)
+    check(n_equal == len(convs), f"int8 conv on the {len(convs)} distinct shapes of both "
+          f"scopes (1x1 and 3x3, stride 1 and 2, Cin 32-2048, Cout 5-2048, bf16 out): "
+          f"kernel == plain bit for bit on {n_equal} (max |difference| {conv_err:.3g})")
+
+    # times against the bound and the yardsticks, per distinct shape
+    rows = []
+    lines = [card, "int8 conv per distinct shape (B, H, W, Cin, Cout, k, stride, pad, out, "
+             "bias): calls a batch default/full, kernel ms, bound ms (by), % of bound, "
+             "plain ms, _int_mm ms (im2col prebuilt, not timed), cuDNN bf16 ms"]
+    for key, (_, args) in sorted(convs.items()):
+        xq, wq, _, _, zp, stride, pad, dtype, _ = args
+        b, h, w, cin, cout, k = key[:6]
+        ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+        m, kk = b * ho * wo, k * k * cin
+        t_k, _ = cuda_ms(torch, lambda a=args: pq.int8_conv2d_cuda(*a), 10)
+        t_p, _ = cuda_ms(torch, lambda a=args: pq.int8_conv2d_plain(*a), 1, repeats=1)
+        out_b = 2 if dtype == torch.bfloat16 else 4
+        bd = bound(xq.numel() + wq.numel() + m * cout * out_b + 12 * cout,
+                   2.0 * m * cout * kk, INT8_OPS_S)
+        t_mm = None
+        if m > 16 and kk % 8 == 0 and cout % 8 == 0:
+            a_mat = (xq.reshape(m, cin) if k == 1 and stride == 1 else
+                     im2col_int8(torch, xq, k, stride, pad, int(zp.item())))
+            b_mat = wq.reshape(cout, kk).t()
+            t_mm, _ = cuda_ms(torch, lambda a=a_mat, bb=b_mat: torch._int_mm(a, bb), 10)
+            del a_mat
+        xc = torch.randn(b, cin, h, w, device=dev, dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wc = torch.randn(cout, cin, k, k, device=dev, dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        t_c, _ = cuda_ms(torch, lambda xc=xc, wc=wc, s=stride, p=pad: F.conv2d(
+            xc, wc, stride=s, padding=p), 10)
+        del xc, wc
+        rows.append((key, t_k, bd, t_p, t_mm, t_c))
+        lines.append(f"{key}: {counts['default'][0].get(key, 0)}/{counts['full'][0][key]}, "
+                     f"{t_k:.4f}, {bd[0]:.4f} ({bd[1]}), {bd[0] / t_k:.1%}, {t_p:.3f}, "
+                     + (f"{t_mm:.4f}" if t_mm is not None else "none") + f", {t_c:.4f}")
+    batch = {}
+    for name in scopes:
+        c = counts[name][0]
+        sel = [(c.get(r[0], 0), r) for r in rows]
+        batch[name] = dict(
+            ms=sum(n * r[1] for n, r in sel), bound=sum(n * r[2][0] for n, r in sel),
+            ops_bound=sum(n * r[2][0] for n, r in sel if r[2][1] == "operations"),
+            plain=sum(n * r[3] for n, r in sel),
+            int_mm=sum(n * r[4] for n, r in sel if r[4] is not None),
+            int_mm_kernel=sum(n * r[1] for n, r in sel if r[4] is not None),
+            cudnn=sum(n * r[5] for n, r in sel))
+        bt = batch[name]
+        say(f"   int8 conv, a batch, {name} scope ({sum(c.values())} calls, {len(c)} shapes): "
+            f"kernel {bt['ms']:.3f} ms, bound {bt['bound']:.3f} ms ({bt['bound'] / bt['ms']:.1%}"
+            f"; {bt['ops_bound']:.3f} ms of it from operations), plain {bt['plain']:.1f} ms; "
+            f"yardsticks: cuDNN bf16 convs of the same shapes {bt['cudnn']:.3f} ms, "
+            f"torch._int_mm {bt['int_mm']:.3f} ms where it applies (Cout % 8 == 0; the "
+            f"kernel on those shapes {bt['int_mm_kernel']:.3f} ms; 3x3 as a prebuilt im2col, "
+            f"its build not timed)")
+    for key, t_k, bd, t_p, t_mm, t_c in sorted(rows, key=lambda r: -r[1] * counts["full"][0][r[0]])[:8]:
+        say(f"     {key}: kernel {t_k:.4f} ms ({bd[0] / t_k:.1%} of {bd[0]:.4f}, {bd[1]}), "
+            f"_int_mm " + (f"{t_mm:.4f}" if t_mm is not None else "none") + f", cuDNN bf16 {t_c:.4f}")
+    q_rows = []
+    for key, (_, args) in sorted(quants.items()):
+        t_q, _ = cuda_ms(torch, lambda a=args: pq.quantize_act_cuda(*a), 10)
+        t_qp, _ = cuda_ms(torch, lambda a=args: pq.quantize_act_plain(*a), 1, repeats=1)
+        n = args[0].numel()
+        bq = bound(n * (args[0].element_size() + 1), 0, INT8_OPS_S)
+        q_rows.append((key, t_q, bq, t_qp))
+        lines.append(f"quantise {key}: {counts['default'][1].get(key, 0)}/"
+                     f"{counts['full'][1][key]}, {t_q:.4f} ms, bound {bq[0]:.4f}, "
+                     f"{bq[0] / t_q:.1%}, plain {t_qp:.3f}")
+        say(f"     {lines[-1]}")
+    qbatch = {}
+    for name in scopes:
+        c = counts[name][1]
+        qbatch[name] = tuple(sum(c.get(r[0], 0) * r[i] for r in q_rows) for i in (1, 3)) + (
+            sum(c.get(r[0], 0) * r[2][0] for r in q_rows),)
+        say(f"   quantiser, a batch, {name} scope ({sum(c.values())} calls): kernel "
+            f"{qbatch[name][0]:.3f} ms, bound {qbatch[name][2]:.3f} ms (bytes: "
+            f"{qbatch[name][2] / qbatch[name][0]:.1%}), plain {qbatch[name][1]:.3f} ms")
+    (out_dir / "chip_smoke_int8.txt").write_text("\n".join(lines) + "\n")
+    del convs, quants
+
+    # the kernel path against the plain path at batch 2, and int8 against bf16
+    x2 = x[:2]
+    cfg = ModelConfig()
+    for name in scopes:
+        p = preds[name]
+        p.forward(x2)  # cuDNN picks its algorithms for batch 2 first
+        out_k = p.forward(x2)
+        with _int8_plain(pq):
+            out_p = p.forward(x2)
+        diff = max((a.float() - b.float()).abs().max().item() for key in ("odm_cls", "odm_bbox")
+                   for a, b in zip(out_k[key], out_p[key]))
+        dk = [t.cpu().numpy() for t in head_dets(out_k, cfg)]
+        dp = [t.cpu().numpy() for t in head_dets(out_p, cfg)]
+        matched = total = 0
+        for i in range(2):
+            a, la = dk[0][i][dk[2][i]], dk[1][i][dk[2][i]]
+            bb, lb = dp[0][i][dp[2][i]], dp[1][i][dp[2][i]]
+            ious = box_iou_rotated_plain(torch.from_numpy(a[:, :5]), torch.from_numpy(bb[:, :5]))
+            matched += match_1to1(a, la, bb, lb, ious.numpy())
+            total += max(len(a), len(bb))
+        check(total > 0 and matched >= 0.95 * total,
+              f"int8 {name}, batch 2, score_thr 0.005: kernel path vs plain path (the int8 "
+              f"convs and quantiser plain) matched 1:1 by IoU {matched / max(total, 1):.4f} of "
+              f"{total}; head outputs max |kernel - plain| {diff:.3g}")
+    # int8 against bf16. The JAX package's bar (tests/test_quant.py, R-18
+    # 64^2) is 0.07 of max(|float|, 0.05). On R-50 its own int8 path moves
+    # odm_bbox by up to 0.28 of that scale at 128^2, the port's by 0.39
+    # (tests/test_torch_port_quant.py::test_int8_resnet50_moves_outputs_as_jax):
+    # random-weight box deltas are tiny, and codes flipped early spread
+    # through 60 quantised layers. So odm_cls keeps 0.07 and odm_bbox 0.5.
+    out_b = preds["bf16"].forward(x)
+    for name in scopes:
+        out_q = preds[name].forward(x)
+        errs = {}
+        for key in ("odm_cls", "odm_bbox"):
+            rel = [((a.float() - b.float()).abs() / max(a.float().abs().max().item(), 0.05))
+                   for a, b in zip(out_b[key], out_q[key])]
+            errs[key] = (max(r.max().item() for r in rel), max(r.mean().item() for r in rel))
+        check(errs["odm_cls"][0] < 0.07 and errs["odm_bbox"][0] < 0.5,
+              f"int8 {name} vs bf16, batch 8, in units of max(|bf16|, 0.05), largest / "
+              f"largest per-level mean: odm_cls {errs['odm_cls'][0]:.4f} / "
+              f"{errs['odm_cls'][1]:.5f} (bar 0.07), odm_bbox {errs['odm_bbox'][0]:.4f} / "
+              f"{errs['odm_bbox'][1]:.5f} (bar 0.5)")
+    del out_b, out_q, out_k, out_p
+
+    # chips/s, each predictor in turns at both score thresholds
+    rates = {(name, thr): [] for name in preds for thr in (cfg.score_thr, 0.005)}
+    for p in preds.values():
+        p.predict(imgs)[0].sum().item()
+        p.predict(imgs, score_thr=0.005)[0].sum().item()
+    for _ in range(3):
+        for (name, thr), rs in rates.items():
+            t0 = time.perf_counter()
+            for _ in range(5):
+                preds[name].predict(imgs, score_thr=thr)[0].sum().item()
+            rs.append(5 * BATCH / (time.perf_counter() - t0))
+    for thr in (cfg.score_thr, 0.005):
+        say(f"   serving chips/s at batch {BATCH}, score_thr {thr} (3 runs of 5 batches each, "
+            f"in turns): " + "; ".join(f"{name} {median_spread(rates[name, thr])[0]:.2f} "
+                                        f"(runs {', '.join(f'{r:.2f}' for r in rates[name, thr])})"
+                                        for name in preds))
+
+    # one profiled batch of each: kernel time, launches, idle share
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    idle = {}
+    for name in preds:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            preds[name].predict(imgs)[0].sum().item()
+        avg = prof.key_averages()
+        key = ("self_device_time_total" if hasattr(avg[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        kern = [e for e in avg if e.device_type == DeviceType.CUDA and getattr(e, key) > 0]
+        busy = sum(getattr(e, key) for e in kern) / 1000
+        int8 = sum(getattr(e, key) for e in kern if "int8_conv" in e.key) / 1000
+        quant = sum(getattr(e, key) for e in kern if "quantize_act" in e.key) / 1000
+        wall = 1000 * BATCH / median_spread(rates[name, cfg.score_thr])[0]
+        idle[name] = max(0.0, 1 - busy / wall)
+        say(f"   profile of one {name} batch: {busy:.2f} ms of kernels in "
+            f"{sum(e.count for e in kern)} launches (int8 conv {int8:.2f} ms, quantiser "
+            f"{quant:.2f} ms); timed batch wall {wall:.2f} ms -> device idle share "
+            f"{idle[name]:.3f}")
+    del preds
+    torch.cuda.empty_cache()
+
+    # python -m s2anet_tpu_torch.val --quant int8 on phase 11's chips
+    gt_dir = root / "labels_plain_bf16"
+    args = ["--data-root", str(images), "--batch-size", str(BATCH), "--conf-thres", "0.005",
+            "--seed", str(SEED), "--quant", "int8", "--no-map-split", "--gt-dir", str(gt_dir)]
+    say(f"   python -m s2anet_tpu_torch.val {' '.join(args)}")
+    for k in kernels:
+        k.launches = 0
+    res = port_val.main(args)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in kernels}
+    nb = -(-res["n_images"] // BATCH)
+    check(launches == {"s2a_quantize_act": 100 * nb, "s2a_int8_conv2d": 100 * nb}
+          and 0.0 <= res["map50"] <= 1.0,
+          f"val --quant int8 on {res['n_images']} chips: launches {launches} ({nb} batches, "
+          f"calibration in float); mAP50 {res['map50']:.4f} against the labels made from the "
+          f"bf16 plain path's detections (merge mode; phase 11's bf16 kernel path scored "
+          f">= 0.90 there)")
+    args[1] = str(listed)
+    args = args[:-3]  # chip-level mAP on the listed chips: the rate is the point
+    lres = port_val.main(args)
+    say(f"   val --quant int8 over {lres['n_images']} listed chips: "
+        f"{lres['images_per_sec']:.2f} images/s end to end ({loop_split(lres)}); bf16 "
+        f"(phase 11, same call): {bf16_listed_rate:.2f} images/s")
+
+    src = "s2anet_tpu_torch/csrc/int8_conv.cu"
+    bt, qt = batch["default"], qbatch["default"]
+    return [
+        dict(name="int8_conv2d", source=src, replaces="s2anet_tpu/ops/quant.py:151",
+             launches=launches["s2a_int8_conv2d"], path="val --quant int8",
+             max_abs_err=conv_err, ms=bt["ms"], plain_ms=bt["plain"], bound_ms=bt["bound"],
+             bound_by="operations" if bt["ops_bound"] > bt["bound"] / 2 else "bytes",
+             library_ms=None, int_mm_ms=bt["int_mm"], int_mm_kernel_ms=bt["int_mm_kernel"],
+             cudnn_bf16_ms=bt["cudnn"], full_scope_ms=batch["full"]["ms"],
+             full_scope_bound_ms=batch["full"]["bound"], idle_share=idle["default"]),
+        dict(name="quantize_act", source=src, replaces="s2anet_tpu/ops/quant.py:166",
+             launches=launches["s2a_quantize_act"], path="val --quant int8",
+             max_abs_err=q_err, ms=qt[0], plain_ms=qt[1], bound_ms=qt[2], bound_by="bytes",
+             library_ms=None, full_scope_ms=qbatch["full"][0]),
+    ]
+
+
+@contextlib.contextmanager
+def _int8_plain(pq):
+    """The int8 quantiser and conv through their plain versions."""
+    with mock.patch.object(pq, "quantize_act", pq.quantize_act_plain), \
+            mock.patch.object(pq, "int8_conv2d", pq.int8_conv2d_plain):
+        yield
+
+
+def head_dets(out, cfg):
+    """Detections of head outputs at score_thr 0.005."""
+    from s2anet_tpu_torch.models.head import decode_levels
+    from s2anet_tpu_torch.ops import nms_rotated as nms
+
+    boxes, scores = decode_levels(out, cfg.max_before_nms_per_level)
+    return nms.multiclass_nms_rotated(boxes, scores, 0.005, cfg.nms_iou_thr, cfg.max_per_img,
+                                      cfg.pre_nms_cap)
+
 
 
 TRAIN_CHIPS, VAL_CHIPS = 32, 16  # phase 12: synthetic 1024^2 chips
@@ -1245,7 +1625,6 @@ def phase_train_loop(torch, out_dir, step_ms):
     phase 9's ms/step, printed beside the loop's."""
     import csv
     import dataclasses
-    import shutil
 
     from s2anet_tpu_torch import val as port_val
     from s2anet_tpu_torch.config import load_config
@@ -1438,7 +1817,7 @@ def main(argv=None) -> int:
         f"capability {torch.cuda.get_device_capability(0)}")
 
     say("== 2. build")
-    libs = ("deform_conv", "iou_nms_rotated", "bn_moments")
+    libs = ("deform_conv", "iou_nms_rotated", "bn_moments", "int8_conv")
     t0 = time.perf_counter()
     _ext.build(libs)
     say(f"   {len(libs)} libraries in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
@@ -1904,8 +2283,12 @@ def main(argv=None) -> int:
     say(f"   the two calls of a step: {t_ik + t_ik2:.4f} ms")
 
     phase_step_vs_plain(torch, dev)
-    eval_launches = phase_eval(torch, dev, out_dir)
-    phase_train_loop(torch, out_dir, train_summary["ms_per_step"])
+    eval_launches, eval_root, bf16_listed_rate = phase_eval(torch, dev, out_dir, keep=True)
+    try:
+        phase_train_loop(torch, out_dir, train_summary["ms_per_step"])
+        quant_rows = phase_quant(torch, dev, out_dir, eval_root, bf16_listed_rate)
+    finally:
+        shutil.rmtree(eval_root, ignore_errors=True)  # phase 11's 100 MB of images
 
     say(card)
     src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"
@@ -1951,7 +2334,7 @@ def main(argv=None) -> int:
              launches=train_launches["s2a_bn_apply"], path="train", **bn_rows["apply"]),
         dict(name="bn_dx", source=src_m, replaces="s2anet_tpu/models/bn.py:140",
              launches=train_launches["s2a_bn_dx"], path="train", **bn_rows["dx"]),
-    ]
+    ] + quant_rows
     say(json.dumps({"kernels": [{"name": r.pop("name"), "route": "cuda", **r}
                                 for r in rows]}))
     say(json.dumps({"ok": True, "device": {

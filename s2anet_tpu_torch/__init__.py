@@ -2,8 +2,9 @@
 
 A port of :mod:`s2anet_tpu` (JAX): serving (ResNet + FPN + the S2ANet head,
 decode and multiclass rotated NMS; ``predict``, which also tiles and merges
-large scenes), the train step (``train``), and evaluation on DOTA-format
-data (``data``, ``eval``, ``val``). The hot spots run as hand-written CUDA
+large scenes), the train step (``train``), evaluation on DOTA-format
+data (``data``, ``eval``, ``val``), and int8 post-training-quantised
+serving (``ops/quant.py``, ``val --quant int8``). The hot spots run as hand-written CUDA
 kernels (``csrc/``); the polygon IoU of the evaluation runs in a small C++
 library (``native/``). Everything else is plain PyTorch and NumPy.
 

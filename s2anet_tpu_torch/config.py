@@ -3,13 +3,12 @@ a copy of its ``TrainConfig``, and the fields of its ``DataConfig`` and
 ``EvalConfig`` that training and evaluation read.
 
 Same names and defaults as ``s2anet_tpu/utils/config.py`` (a test holds them
-equal); the int8 and TPU-implementation fields and rect batching are left
-out. :func:`load_config` reads the repository's YAML files
+equal); the TPU-implementation fields and rect batching are left out. :func:`load_config` reads the repository's YAML files
 (``configs/*.yaml``) with :mod:`.yaml_lite`, since the machine with the card
 has no pyyaml, merges overrides into the defaults and applies the class-name
 rule (:func:`resolve_names`). A file that sets a JAX-only field away from
 its default to something the port does not run (``with_orconv: false``,
-``bn_stats_images``, ``quant``, ``eval.rect``) is refused rather than
+``bn_stats_images``, ``eval.rect``) is refused rather than
 ignored; the JAX-only implementation switches (``deform_impl``, ``bn_impl``
 and the like) have nothing to switch here and are ignored.
 """
@@ -41,6 +40,15 @@ class ModelConfig:
     # clamp AlignConv sampling offsets to +-N feature cells (0 = off, exact
     # reference semantics)
     align_offset_clamp: float = 0.0
+    # int8 post-training quantisation for serving (ops/quant.py): "none" |
+    # "int8" (calibrate activation ranges on the first quant_calib_batches
+    # evaluation batches, then run the convs of quant_scope through the
+    # int8 kernels); training always runs float
+    quant: str = "none"
+    quant_calib_batches: int = 4
+    # module groups quantised under quant "int8" (of backbone, neck,
+    # head_stacks, orconv, heads); the rest runs float
+    quant_scope: Sequence[str] = ("backbone", "neck", "head_stacks")
     # fold each BatchNorm into its conv at load time (models/fold.py)
     fold_bn: bool = True
     # inference: decode + NMS (the eval protocol's threshold)
@@ -159,7 +167,7 @@ class Config:
 # JAX-only fields whose other values change what is computed; the port runs
 # only these values
 UNPORTED = {
-    "model": {"with_orconv": True, "bn_stats_images": 0, "quant": "none"},
+    "model": {"with_orconv": True, "bn_stats_images": 0},
     "eval": {"rect": False},
 }
 

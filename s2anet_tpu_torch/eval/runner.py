@@ -25,10 +25,17 @@ for batch i too, so:
     read after *its* event;
   * a pinned input buffer is written again only after the event of the
     copy that read it.
+
+**int8 serving** (``cfg.model.quant == "int8"``), in the JAX runner's
+order: the scope is checked before any loading, the step (a predictor
+built with the config, which folded BatchNorm at load) calibrates on the
+first ``quant_calib_batches`` batches, a short one wrap-padded to the
+batch size (:func:`calibration_batches`), then the loop runs int8.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import defaultdict
@@ -43,6 +50,7 @@ from ..data.dota import PREFETCH, BatchLoader, DotaDataset
 from ..data.merge import merge_chip_detections
 from ..data.split import parse_dota_label
 from ..ops.polyiou import rbox_vertices_np
+from ..ops.quant import parse_scope
 from .voc_eval import evaluate_detections
 
 
@@ -251,6 +259,19 @@ class BatchPipeline:
             self._cond.notify_all()
 
 
+def calibration_batches(dataset: DotaDataset, batch_size: int, k: int):
+    """The first ``k`` batches of ``dataset`` in order, uint8 RGB ``[B, S,
+    S, 3]``, a short batch wrap-padded to ``batch_size`` (one loader
+    thread: a few batches)."""
+    out = []
+    for batch in itertools.islice(BatchLoader(dataset, batch_size, num_workers=1), k):
+        imgs = batch["imgs"]
+        if len(imgs) < batch_size:
+            imgs = imgs[np.arange(batch_size) % len(imgs)]
+        out.append(imgs)
+    return out
+
+
 def score_detections(chip_dets, cfg, dataset: Optional[DotaDataset] = None,
                      chip_dims=None, save_dir=None):
     """The evaluation of per-chip detections ``{chip: [(class_id, score,
@@ -304,12 +325,21 @@ def evaluate_on_chips(step, cfg, dataset: Optional[DotaDataset] = None,
     the device and its post-processing), and chip_dets: {chip: [(class_id,
     score, poly[8])]} in the chip's frame).
     ``save_dir`` dumps per-class DOTA-format result txts (chip-level, and
-    merged when ``is_map_split`` is off).
+    merged when ``is_map_split`` is off). A step that ``needs_calibration``
+    (an int8 predictor) is calibrated first, on the first
+    ``cfg.model.quant_calib_batches`` batches; the result then holds the
+    ranges (``quant_ranges``).
     """
+    if cfg.model.quant == "int8":  # a typo in the scope fails before any loading
+        parse_scope(cfg.model.quant_scope)
     dataset = dataset or DotaDataset(
         cfg.data.val_list or cfg.data.root, img_size=cfg.data.img_size,
         max_gt=cfg.data.max_gt, cache_images=cfg.data.cache)
     bs = cfg.eval.batch_size
+    ranges = None
+    if getattr(step, "needs_calibration", False):
+        ranges = step.calibrate(calibration_batches(
+            dataset, bs, max(1, int(cfg.model.quant_calib_batches))))
     pipeline = BatchPipeline(step, bs, dataset.img_size, with_batch=with_loss)
     loader = BatchLoader(dataset, bs, num_workers=cfg.data.workers or None,
                          staging=pipeline)
@@ -366,6 +396,8 @@ def evaluate_on_chips(step, cfg, dataset: Optional[DotaDataset] = None,
     out["n_images"] = n_imgs
     out["seconds"] = dict(seconds, loop=t_infer)
     out["chip_dets"] = chip_dets
+    if ranges is not None:
+        out["quant_ranges"] = ranges
     if with_loss and n_imgs:
         for i, key in enumerate(("val/fam_cls_loss", "val/fam_reg_loss",
                                  "val/odm_cls_loss", "val/odm_reg_loss")):

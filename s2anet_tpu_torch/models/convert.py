@@ -5,10 +5,16 @@ it maps the JAX ``{"params", "batch_stats"}`` tree (nested dicts of arrays,
 BatchNorms unfolded) to the reference torch key layout that the port's
 modules use, transposing conv kernels HWIO -> OIHW. ``or_weight``
 ``[Cout/8, Cin, 1, 3, 3]`` is already in torch layout and is copied as it is.
+
+The calibrated int8 activation ranges (the JAX ``"quant"`` collection:
+``act_min``/``act_max`` per quantised conv, ``or_act_min``/``or_act_max``
+on the head for the ORConv) map to and from the port's range buffers by
+module name (:func:`quant_ranges_from_jax`, :func:`quant_ranges_to_jax`).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -122,4 +128,55 @@ def load_jax_npz(path):
             for p in parents:
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
+    return tree
+
+
+def _jax_quant_path(name: str):
+    """JAX ``"quant"`` path of the port module ``name`` and its two leaf
+    names."""
+    m = re.fullmatch(r"backbone\.backbone\.(?:1\.1|(\d))\.(\d+)\.(conv\d|downsample\.0)", name)
+    if m:
+        stage = m.group(1) or "1"
+        conv = "downsample_conv" if m.group(3) == "downsample.0" else m.group(3)
+        return ("backbone", f"layer{stage}_{m.group(2)}", conv), "act_min", "act_max"
+    m = re.fullmatch(r"neck\.(lateral|fpn)_convs\.(\d+)", name)
+    if m:
+        return ("neck", f"{m.group(1)}_{m.group(2)}"), "act_min", "act_max"
+    m = re.fullmatch(r"head\.(\w+_ls)\.(\d+)\.0", name)
+    if m:
+        return ("head", m.group(1), f"conv{m.group(2)}"), "act_min", "act_max"
+    if name == "head.or_conv":
+        return ("head",), "or_act_min", "or_act_max"
+    m = re.fullmatch(r"head\.(\w+_head)", name)
+    if m:
+        return ("head", m.group(1)), "act_min", "act_max"
+    raise KeyError(f"no JAX quant path for module {name!r}")
+
+
+def quant_ranges_from_jax(quant, names) -> Dict[str, tuple]:
+    """The JAX ``"quant"`` collection -> ``{module name: (act_min,
+    act_max)}`` float32 tensors for the port modules ``names`` that it
+    holds ranges for."""
+    out = {}
+    for name in names:
+        path, lo, hi = _jax_quant_path(name)
+        node = quant
+        for key in path:
+            node = node.get(key, {}) if isinstance(node, dict) else {}
+        if lo in node:
+            out[name] = (_t(node[lo]), _t(node[hi]))
+    return out
+
+
+def quant_ranges_to_jax(ranges: Dict[str, tuple]) -> dict:
+    """``{module name: (act_min, act_max)}`` -> the JAX ``"quant"``
+    collection (nested dicts of float32 arrays)."""
+    tree: dict = {}
+    for name, (amin, amax) in ranges.items():
+        path, lo, hi = _jax_quant_path(name)
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[lo] = np.asarray(amin.detach().cpu(), np.float32)
+        node[hi] = np.asarray(amax.detach().cpu(), np.float32)
     return tree

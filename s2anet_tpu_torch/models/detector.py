@@ -5,6 +5,11 @@ Counterpart of ``s2anet_tpu/models/detector.py::S2ANet``. ``forward`` takes
 outputs, in eval and in train mode; :func:`..models.head.s2anet_get_bboxes`
 decodes them for serving, :func:`..models.head.compute_s2anet_loss` turns
 them into the training loss.
+
+int8 serving: :meth:`S2ANet.set_quant` turns the convs of the chosen scope
+groups into int8-capable convs in place and switches their mode
+(``ops/quant.py``); fold BatchNorm first (``models/fold.py``), then
+calibrate (``ops.quant.calibrate``), then serve in ``int8``.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops.quant import QUANT_MODES, QUANT_SCOPE_DEFAULT, parse_scope, quant_modules
+from .conv import quantizable
 from .fpn import FPN
 from .head import S2ANetHead
 from .resnet import ResNet, stage_channels
@@ -54,8 +61,53 @@ class S2ANet(nn.Module):
     def cast(self, dtype: torch.dtype) -> "S2ANet":
         """Compute in ``dtype``, except the four prediction heads, whose
         parameters stay float32 (flax computes them in float32 when a
-        bfloat16 input meets float32 parameters)."""
-        self.to(dtype)
-        for conv in self.head.prediction_heads():
-            conv.float()
+        bfloat16 input meets float32 parameters), and the convs set to
+        calibrate or run int8, whose float32 weights and ranges the int8
+        constants come from (the JAX package quantises its float32
+        parameters)."""
+        keep = {id(c) for c in self.head.prediction_heads()}
+        keep |= {id(m) for _, m in quant_modules(self) if m.mode != "none"}
+        for m in self.modules():
+            if id(m) in keep:
+                continue
+            for p in m._parameters.values():
+                if p is not None:
+                    p.data = p.data.to(dtype)
+            for name, b in m._buffers.items():
+                if b is not None and b.is_floating_point():
+                    m._buffers[name] = b.to(dtype)
+        return self
+
+    def set_quant(self, mode: str, scope=QUANT_SCOPE_DEFAULT) -> "S2ANet":
+        """Put the convs of the quantisation ``scope`` (groups of
+        ``ops.quant.QUANT_SCOPE_ALL``; validated first) in ``mode``:
+        ``calib`` (float, recording per-slot input ranges), ``int8`` (the
+        calibrated ranges and current weights as int8 constants; raises on a
+        conv never calibrated) or ``none``; every other conv runs float. The
+        backbone's block and downsample convs (not the stem), the FPN's
+        convs, the head's stacks and prediction heads become
+        ``QuantConv2d`` in place on first use; the head's convs and its
+        ORConv keep one range per FPN level."""
+        scope = parse_scope(scope)
+        if mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {mode!r} (expected none | calib | int8)")
+        nlv = len(self.head.featmap_strides)
+        sites = {"backbone": (self.backbone.quant_sites, 1),
+                 "neck": (self.neck.quant_sites, 1),
+                 "head_stacks": (self.head.stack_sites, nlv),
+                 "heads": (self.head.head_sites, nlv)}
+        active = []
+        if mode != "none":
+            for group in scope:
+                if group == "orconv":
+                    active.append(self.head.or_conv)
+                    continue
+                fn, slots = sites[group]
+                active += [quantizable(parent, key, slots) for parent, key in list(fn())]
+        chosen = {id(m) for m in active}
+        for _, m in quant_modules(self):
+            if id(m) not in chosen:
+                m.set_mode("none")
+        for m in active:
+            m.set_mode(mode)
         return self

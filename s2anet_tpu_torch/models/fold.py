@@ -4,12 +4,18 @@ Counterpart of ``s2anet_tpu/models/fold.py``: at inference a BatchNorm is a
 per-channel affine with frozen constants, so its scale folds into the
 preceding conv's weight and its shift becomes the conv's bias. The fold is
 computed in float64 on the host and stored in float32, as in the JAX package.
+
+Folding composes with int8 serving as in the JAX package: fold first, then
+calibrate and quantise, so the per-channel weight scales absorb gamma/sigma
+(:func:`fold_bn` refuses a model whose convs already hold int8 constants).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..ops.quant import quant_modules
 
 
 def _fold_pair(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> None:
@@ -35,6 +41,9 @@ def fold_bn(module: nn.Module) -> int:
     ``conv{i}``/``bn{i}`` attributes of the residual blocks. Each folded
     BatchNorm becomes an ``nn.Identity``. Returns the number of pairs.
     """
+    if any(m.mode == "int8" for _, m in quant_modules(module)):
+        raise ValueError("fold_bn: fold BatchNorm before quantising (the int8 constants "
+                         "come from the weights at set_quant time)")
     folded = 0
     for parent in list(module.modules()):
         if isinstance(parent, nn.Sequential):

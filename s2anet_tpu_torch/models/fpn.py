@@ -41,6 +41,13 @@ class FPN(nn.Module):
             outs.append(conv(inputs[-1] if i == 0 else outs[-1]))
         return tuple(outs)
 
+    def quant_sites(self):
+        """``(parent, key)`` of the laterals, the output convs and the
+        extras, the convs the ``neck`` quantisation scope takes."""
+        for convs in (self.lateral_convs, self.fpn_convs):
+            for key in convs._modules:
+                yield convs, key
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
         """Xavier-uniform kernels, zero biases."""

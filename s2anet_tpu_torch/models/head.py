@@ -19,6 +19,13 @@ Numerics pinned to the JAX package:
 
 Module names follow the reference's torch key layout (``fam_reg_ls.{i}.0``,
 ``align_conv.deform_conv.weight``, ``or_conv.weight``/``bias``, ...).
+
+int8 serving (``ops/quant.py``, switched by ``S2ANet.set_quant``): the
+stacks (``head_stacks``), the prediction heads (``heads``) and the ORConv
+(``orconv``, its ARF-expanded kernel quantised per output channel) keep
+one activation range per FPN level, since their weights are shared across
+the levels. A quantised prediction head computes in its input's type, as
+the JAX ``QuantConv`` does. The AlignConv always stays float.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch import nn
 from ..ops.deform_conv import align_conv_offsets, deform_conv2d
 from ..ops.nms_rotated import multiclass_nms_rotated
 from ..ops.orn import rotate_arf, rotation_invariant_pooling
+from ..ops.quant import QuantMixin, call_conv
 from ..ops.rbox import rboxes_decode, rboxes_encode
 from ..ops.topk import top_k
 from .anchors import grid_anchors
@@ -49,12 +57,19 @@ def _bias_init_with_prob(prob: float) -> float:
     return -math.log((1 - prob) / prob)
 
 
-def _conv_stack(cin: int, feat: int, n: int) -> nn.Sequential:
-    """n x (3x3 conv + ReLU); the first conv takes ``cin`` channels."""
-    return nn.Sequential(*(
-        nn.Sequential(Conv2d(cin if i == 0 else feat, feat, 3, 1, 1),
-                      nn.ReLU())
-        for i in range(n)))
+class ConvStack(nn.Sequential):
+    """n x (3x3 conv + ReLU); the first conv takes ``cin`` channels. The
+    range slot reaches quantised convs."""
+
+    def __init__(self, cin: int, feat: int, n: int):
+        super().__init__(*(
+            nn.Sequential(Conv2d(cin if i == 0 else feat, feat, 3, 1, 1), nn.ReLU())
+            for i in range(n)))
+
+    def forward(self, x: torch.Tensor, slot: int = 0) -> torch.Tensor:
+        for conv, act in self:
+            x = act(call_conv(conv, x, slot))
+        return x
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -96,20 +111,30 @@ class AlignConv(nn.Module):
         return torch.relu(self.deform_conv(x_nhwc, offsets))
 
 
-class ORConv2d(nn.Module):
+class ORConv2d(nn.Module, QuantMixin):
     """ARF conv with one input orientation and ``n_rot`` rotated copies:
-    ``weight [Cout/n_rot, Cin, 1, 3, 3]`` expands to ``[Cout, Cin, 3, 3]``."""
+    ``weight [Cout/n_rot, Cin, 1, 3, 3]`` expands to ``[Cout, Cin, 3, 3]``.
+    Quantisable (``ops/quant.py::QuantMixin``) with one range per level."""
 
-    def __init__(self, cin: int, cout: int, n_rot: int = 8):
+    stride = padding = (1, 1)
+
+    def __init__(self, cin: int, cout: int, n_rot: int = 8, range_slots: int = 5):
         super().__init__()
         self.n_rot = n_rot
         self.weight = nn.Parameter(torch.empty(cout // n_rot, cin, 1, 3, 3))
         self.bias = nn.Parameter(torch.empty(cout))
+        self._init_quant(range_slots)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def quant_kernel(self) -> torch.Tensor:
+        return rotate_arf(self.weight, self.n_rot).permute(2, 3, 1, 0)  # HWIO
+
+    def float_forward(self, x: torch.Tensor) -> torch.Tensor:
         w = rotate_arf(self.weight, self.n_rot).to(x.dtype)
         y = F.conv2d(x, w, padding=1)
         return y + self.bias.to(x.dtype)[None, :, None, None]
+
+    def forward(self, x: torch.Tensor, slot: int = 0) -> torch.Tensor:
+        return self.quant_forward(x, slot)
 
 
 class S2ANetHead(nn.Module):
@@ -123,15 +148,16 @@ class S2ANetHead(nn.Module):
         fc, nc = feat_channels, num_classes
         self.featmap_strides = tuple(featmap_strides)
         # the input pyramid has feat_channels channels (AlignConv is fc->fc)
-        self.fam_reg_ls = _conv_stack(fc, fc, _STACKED_CONVS)
-        self.fam_cls_ls = _conv_stack(fc, fc, _STACKED_CONVS)
+        nlv = len(self.featmap_strides)
+        self.fam_reg_ls = ConvStack(fc, fc, _STACKED_CONVS)
+        self.fam_cls_ls = ConvStack(fc, fc, _STACKED_CONVS)
         # FAM output heads are 1x1, ODM heads 3x3
         self.fam_reg_head = Conv2d(fc, 5, 1)
         self.fam_cls_head = Conv2d(fc, nc, 1)
         self.align_conv = AlignConv(fc, align_offset_clamp)
-        self.or_conv = ORConv2d(fc, fc, _N_ORIENT)
-        self.odm_reg_ls = _conv_stack(fc, fc, _STACKED_CONVS)
-        self.odm_cls_ls = _conv_stack(fc // _N_ORIENT, fc, _STACKED_CONVS)
+        self.or_conv = ORConv2d(fc, fc, _N_ORIENT, range_slots=nlv)
+        self.odm_reg_ls = ConvStack(fc, fc, _STACKED_CONVS)
+        self.odm_cls_ls = ConvStack(fc // _N_ORIENT, fc, _STACKED_CONVS)
         self.odm_reg_head = Conv2d(fc, 5, 3, 1, 1)
         self.odm_cls_head = Conv2d(fc, nc, 3, 1, 1)
         self._anchors: dict = {}
@@ -139,6 +165,17 @@ class S2ANetHead(nn.Module):
     def prediction_heads(self):
         return (self.fam_reg_head, self.fam_cls_head, self.odm_reg_head,
                 self.odm_cls_head)
+
+    def stack_sites(self):
+        """``(parent, key)`` of the stacks' convs (``head_stacks``)."""
+        for stack in (self.fam_reg_ls, self.fam_cls_ls, self.odm_reg_ls, self.odm_cls_ls):
+            for layer in stack:
+                yield layer, "0"
+
+    def head_sites(self):
+        """``(parent, key)`` of the four prediction heads (``heads``)."""
+        for key in ("fam_reg_head", "fam_cls_head", "odm_reg_head", "odm_cls_head"):
+            yield self, key
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -161,7 +198,9 @@ class S2ANetHead(nn.Module):
         return self._anchors[key]
 
     @staticmethod
-    def _head(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    def _head(conv: nn.Conv2d, x: torch.Tensor, lvl: int) -> torch.Tensor:
+        if getattr(conv, "mode", "none") != "none":  # quantised: the input's type
+            return _nhwc(conv(x, lvl))
         return _nhwc(conv(x.to(conv.weight.dtype)))
 
     def forward(self, feats):
@@ -177,10 +216,10 @@ class S2ANetHead(nn.Module):
         """
         out = {k: [] for k in ("fam_cls", "fam_bbox", "odm_cls", "odm_bbox",
                                "init_anchors", "refine_anchors")}
-        for x, stride in zip(feats, self.featmap_strides):
+        for lvl, (x, stride) in enumerate(zip(feats, self.featmap_strides)):
             b, _, h, w = x.shape
-            fam_bbox = self._head(self.fam_reg_head, self.fam_reg_ls(x))
-            fam_cls = self._head(self.fam_cls_head, self.fam_cls_ls(x))
+            fam_bbox = self._head(self.fam_reg_head, self.fam_reg_ls(x, lvl), lvl)
+            fam_cls = self._head(self.fam_cls_head, self.fam_cls_ls(x, lvl), lvl)
 
             anchors = self.level_anchors(h, w, stride, x.device)
             # refined anchors carry no gradient: neither the ODM loss nor the
@@ -191,12 +230,13 @@ class S2ANetHead(nn.Module):
                 wh_ratio_clip=1e-6,
             )
             align = self.align_conv(_nhwc(x), refine, stride)  # NHWC
-            or_feat = self.or_conv(_nchw(align))
+            or_feat = self.or_conv(_nchw(align), lvl)
             odm_cls_feat = _nchw(rotation_invariant_pooling(
                 _nhwc(or_feat), _N_ORIENT))
 
-            odm_cls = self._head(self.odm_cls_head, self.odm_cls_ls(odm_cls_feat))
-            odm_bbox = self._head(self.odm_reg_head, self.odm_reg_ls(or_feat))
+            odm_cls = self._head(self.odm_cls_head,
+                                 self.odm_cls_ls(odm_cls_feat, lvl), lvl)
+            odm_bbox = self._head(self.odm_reg_head, self.odm_reg_ls(or_feat, lvl), lvl)
 
             out["fam_cls"].append(fam_cls)
             out["fam_bbox"].append(fam_bbox)

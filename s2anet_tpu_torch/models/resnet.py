@@ -120,6 +120,19 @@ class ResNet(nn.Module):
                 outs.append(x)
         return tuple(outs)
 
+    def quant_sites(self):
+        """``(parent, key)`` of every block conv and downsample conv, the
+        convs the ``backbone`` quantisation scope takes; the stem stays
+        float."""
+        stages = [self.backbone[1][1]] + list(self.backbone[2:])
+        for stage in stages:
+            for block in stage:
+                for key in ("conv1", "conv2", "conv3"):
+                    if key in block._modules:
+                        yield block, key
+                if block.downsample is not None:
+                    yield block.downsample, "0"
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
         """He-normal (fan_out) convs, identity BatchNorms."""

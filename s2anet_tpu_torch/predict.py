@@ -20,6 +20,9 @@ JAX-layout variables (:func:`.models.convert.save_jax_npz`) or a ``.pt``
 port ``state_dict``; with none, the weights are random from ``--seed``.
 
 Not yet here: ``--mode spatial`` (the whole image, sharded by height).
+int8 serving (``ModelConfig.quant``) runs through ``python -m
+s2anet_tpu_torch.val --quant int8``, which calibrates on its first
+batches; like the repository's ``predict.py``, this CLI has no ``--quant``.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from .models.convert import load_jax_npz, state_dict_from_jax
 from .models.detector import S2ANet
 from .models.fold import fold_bn
 from .models.head import s2anet_get_bboxes
+from .ops.quant import calibrate, parse_scope
 from .train.step import scale_images
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -59,11 +63,20 @@ def load_state_dict(path: str, arch: str):
 
 class S2ANetPredictor:
     """Load (or seed), fold and place the detector; ``predict`` runs
-    forward + decode + NMS on a batch of chips."""
+    forward + decode + NMS on a batch of chips.
+
+    With ``cfg.quant == "int8"`` the convs of ``cfg.quant_scope`` (checked
+    first) are set to calibrate before the cast, so their float32 weights
+    stay; :meth:`calibrate` then records the activation ranges over the
+    batches it is given and switches them to int8. Until then ``predict``
+    raises."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), weights: str = "",
                  device: str = "cuda", dtype: torch.dtype = torch.bfloat16,
                  seed: int = 0):
+        if cfg.quant not in ("none", "int8"):
+            raise ValueError(f"quant {cfg.quant!r}: expected none | int8")
+        self.scope = parse_scope(cfg.quant_scope)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"--device {device}: no CUDA device")
@@ -78,7 +91,20 @@ class S2ANetPredictor:
         model.eval()
         if cfg.fold_bn:
             fold_bn(model)
+        self.needs_calibration = cfg.quant == "int8"
+        if self.needs_calibration:
+            model.set_quant("calib", self.scope)
         self.model = model.to(self.device).cast(dtype).channels_last()
+
+    @torch.no_grad()
+    def calibrate(self, batches) -> dict:
+        """Activation ranges over ``batches`` (uint8 RGB ``[B, S, S, 3]``,
+        prepared as :meth:`predict` prepares them), then int8 serving.
+        Returns the ranges (``ops.quant.calibrate``)."""
+        ranges = calibrate(self.model, (self.to_input(b) for b in batches), self.scope)
+        self.model.set_quant("int8", self.scope)
+        self.needs_calibration = False
+        return ranges
 
     def post_kwargs(self):
         c = self.cfg
@@ -95,6 +121,8 @@ class S2ANetPredictor:
     @torch.no_grad()
     def forward(self, x: torch.Tensor):
         """Raw head outputs of a prepared batch (see :meth:`to_input`)."""
+        if self.needs_calibration:
+            raise RuntimeError("quant int8: calibrate() the predictor before serving")
         return self.model(x)
 
     @torch.no_grad()

@@ -15,9 +15,15 @@ Data: ``--data-root`` is an ``images/`` directory (labels in the sibling
 takes an ``.npz`` of JAX variables or a ``.pt`` port ``state_dict`` (the
 trainer's ``weights/deploy``); with none they are random from ``--seed``.
 ``--config`` reads a YAML config (``configs/*.yaml``, or a run's
-``config.yaml``); a flag that is typed replaces its value. ``--quant``,
-``--rect``, ``--no-ema`` and the PR-curve plot of ``val.py`` are not offered
-yet.
+``config.yaml``); a flag that is typed replaces its value.
+
+``--quant int8`` serves through int8 post-training quantisation: BatchNorm
+folded, the activation ranges calibrated on the first
+``quant_calib_batches`` (4) batches, then the convs of ``--quant-scope``
+(comma-separated groups of backbone, neck, head_stacks, orconv, heads;
+default backbone,neck,head_stacks) run through the int8 kernels. A group
+that does not exist fails before anything is loaded. ``--rect``,
+``--no-ema`` and the PR-curve plot of ``val.py`` are not offered yet.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 from .config import Config, load_config, prune_overrides
 from .data.dota import CACHE_MODES
 from .eval.runner import evaluate_on_chips
+from .ops.quant import parse_scope
 from .predict import DTYPES, S2ANetPredictor
 
 
@@ -62,6 +69,13 @@ def parse_opt(argv=None):
                    help="class preset: dota | dota-v1.5 | dota-v2.0 | hrsc")
     p.add_argument("--use-07-metric", type=int, choices=[0, 1], default=None,
                    help="1 = 11-point VOC-07 AP (default), 0 = area under the curve")
+    p.add_argument("--quant", default=None, choices=["none", "int8"],
+                   help="int8 post-training quantisation for inference (calibrates "
+                        "on the first val batches)")
+    p.add_argument("--quant-scope", default=None,
+                   help="comma-separated module groups to quantise "
+                        "(backbone,neck,head_stacks,orconv,heads); default "
+                        "backbone,neck,head_stacks")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
@@ -71,7 +85,9 @@ def parse_opt(argv=None):
 def make_config(opt) -> Config:
     overrides = prune_overrides({
         "model": {"backbone": opt.backbone, "num_classes": opt.num_classes,
-                  "score_thr": opt.conf_thres, "nms_iou_thr": opt.iou_thres},
+                  "score_thr": opt.conf_thres, "nms_iou_thr": opt.iou_thres,
+                  "quant": opt.quant,
+                  "quant_scope": parse_scope(opt.quant_scope) if opt.quant_scope else None},
         "data": {"root": opt.data_root, "val_list": opt.data_root, "img_size": opt.img_size,
                  "val_gt_dir": opt.gt_dir, "cache": opt.cache, "names": opt.names or None},
         "eval": {"batch_size": opt.batch_size, "task": opt.task,
@@ -80,6 +96,7 @@ def make_config(opt) -> Config:
                                    else bool(opt.use_07_metric))},
     })
     cfg = load_config(opt.config or None, overrides)
+    parse_scope(cfg.model.quant_scope)  # a config's typo, too, before any loading
     if not cfg.eval.is_map_split and not cfg.data.val_gt_dir:
         raise SystemExit("--no-map-split scores full images: give their labelTxt dir "
                          "with --gt-dir")

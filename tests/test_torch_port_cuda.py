@@ -589,3 +589,110 @@ def test_small_train_step_kernel_path(dev):
         "s2a_nms_rotated_mask": 0, "s2a_nms_rotated_sweep": 0,
         "s2a_channel_moments": 20, "s2a_grad_channel_sums": 20,
         "s2a_bn_apply": 20, "s2a_bn_dx": 20}
+
+
+# ---------------------------------------------------------------- int8 serving
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [4096, 4096 + 16, 4096 + 5, 2 * 64 * 64 * 256])
+def test_quantize_act_kernel_equals_plain(dev, gen, dtype, n):
+    """Codes bit-equal to the plain version: exact .5 ties (a power-of-two
+    scale), values beyond the clip, a tail past the last 16-element vector."""
+    from s2anet_tpu_torch.ops import quant as qt
+
+    s = torch.tensor(2.0 ** -5, device=dev)
+    zp = torch.tensor(-31.0, device=dev)
+    x = torch.randn(n, generator=gen, device=dev) * 6
+    x[: n // 3] = (torch.randint(-200, 200, (n // 3,), generator=gen, device=dev) + 0.5) * s
+    x = x.to(dtype)
+    got = qt.quantize_act(x, s, zp)
+    torch.cuda.synchronize()
+    want = qt.quantize_act_plain(x, s, zp)
+    assert torch.equal(got, want)
+    assert {-127, 127} <= set(got.unique().tolist())
+
+
+# b, h, w, Cin, Cout, k, stride, pad, output type, bias: every shape class
+# of the serving path (backbone 1x1 / 3x3 / stride 2 / downsample, FPN
+# lateral and extras, the ODM class stack's Cin 32, the prediction heads'
+# Cout 5 and 15 in float32 and bfloat16, ragged M)
+INT8_CONV_SHAPES = [
+    (2, 32, 32, 64, 256, 1, 1, 0, torch.bfloat16, False),
+    (2, 32, 32, 256, 512, 1, 2, 0, torch.bfloat16, False),
+    (2, 33, 31, 128, 128, 3, 2, 1, torch.bfloat16, False),
+    (2, 16, 16, 2048, 256, 1, 1, 0, torch.bfloat16, True),
+    (2, 16, 16, 2048, 256, 3, 2, 1, torch.bfloat16, True),
+    (2, 32, 32, 32, 256, 3, 1, 1, torch.bfloat16, True),
+    (2, 16, 16, 256, 256, 3, 1, 1, torch.bfloat16, True),
+    (2, 16, 16, 256, 5, 3, 1, 1, torch.float32, True),
+    (2, 16, 16, 256, 15, 3, 1, 1, torch.bfloat16, True),
+    (2, 16, 16, 256, 15, 1, 1, 0, torch.float32, True),
+    (1, 7, 9, 64, 64, 3, 1, 1, torch.float32, False),
+    (1, 1, 1, 256, 256, 3, 1, 1, torch.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize("shape", INT8_CONV_SHAPES, ids=str)
+def test_int8_conv_kernel_equals_plain(dev, gen, shape):
+    from s2anet_tpu_torch.ops import quant as qt
+
+    b, h, w, cin, cout, k, stride, pad, dtype, has_bias = shape
+    xq = torch.randint(-127, 128, (b, h, w, cin), generator=gen, device=dev).to(torch.int8)
+    wq = torch.randint(-127, 128, (cout, k, k, cin), generator=gen, device=dev).to(torch.int8)
+    zp = torch.tensor(-77.0, device=dev)
+    corr = (-77 * wq.int().sum((1, 2, 3))).int()
+    mul = torch.rand(cout, generator=gen, device=dev) * 1e-4
+    bias = torch.randn(cout, generator=gen, device=dev) if has_bias else None
+    before = qt.CONV.launches
+    got = qt.int8_conv2d(xq, wq, mul, corr, zp, stride, pad, dtype, bias)
+    torch.cuda.synchronize()
+    want = qt.int8_conv2d_plain(xq, wq, mul, corr, zp, stride, pad, dtype, bias)
+    assert qt.CONV.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("scope", ["default", "full"])
+def test_int8_model_launches_and_equals_plain_path(dev, scope):
+    """R-18 at 128^2, batch 2, bf16: one forward launches each int8 kernel
+    once a quantised conv (default scope 19 + 8 + 40; full + 5 + 20), and
+    equals, bit for bit, the forward with the int8 convs and the quantiser
+    plain."""
+    from unittest import mock
+
+    from s2anet_tpu_torch.ops import quant as qt
+    from s2anet_tpu_torch.predict import S2ANetPredictor
+
+    scopes = {"default": qt.QUANT_SCOPE_DEFAULT, "full": qt.QUANT_SCOPE_ALL}
+    p = S2ANetPredictor(ModelConfig(backbone="resnet18", quant="int8",
+                                    quant_scope=scopes[scope]), device="cuda")
+    imgs = np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    p.calibrate([imgs])
+    x = p.to_input(imgs)
+    before = (qt.QUANTIZE.launches, qt.CONV.launches)
+    got = p.forward(x)
+    torch.cuda.synchronize()
+    n = 67 if scope == "default" else 92
+    assert (qt.QUANTIZE.launches - before[0], qt.CONV.launches - before[1]) == (n, n)
+    with mock.patch.object(qt, "quantize_act", qt.quantize_act_plain), \
+            mock.patch.object(qt, "int8_conv2d", qt.int8_conv2d_plain):
+        want = p.forward(x)
+    for key in ("fam_cls", "fam_bbox", "odm_cls", "odm_bbox"):
+        for a, b in zip(got[key], want[key]):
+            assert torch.equal(a, b), key
+
+
+def test_int8_wrappers_reject_bad_inputs(dev):
+    from s2anet_tpu_torch.ops import quant as qt
+
+    s = torch.tensor(0.1, device=dev)
+    nchw = torch.zeros(2, 64, 8, 8, device=dev)
+    with pytest.raises(ValueError):  # the NHWC view of an NCHW tensor
+        qt.quantize_act(nchw.permute(0, 2, 3, 1), s, s)
+    with pytest.raises(ValueError):  # a host scalar
+        qt.quantize_act(nchw, torch.tensor(0.1), s)
+    xq = torch.zeros(1, 8, 8, 24, dtype=torch.int8, device=dev)
+    wq = torch.zeros(4, 3, 3, 24, dtype=torch.int8, device=dev)
+    v = torch.zeros(4, device=dev)
+    with pytest.raises(ValueError):  # Cin not a multiple of 16
+        qt.int8_conv2d(xq, wq, v, v.int(), s, 1, 1, torch.bfloat16)

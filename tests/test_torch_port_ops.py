@@ -165,7 +165,7 @@ def test_port_imports_no_jax():
             "optim.py", "state.py", "step.py", "__main__.py", "trainer.py",
             "checkpoint.py", "pretrained.py", "yaml_lite.py", "config.py", "augment.py",
             "dota.py", "synth.py", "callbacks.py", "loggers.py",
-            "runner.py"} <= {f.name for f in files}
+            "runner.py", "quant.py", "conv.py", "convert.py"} <= {f.name for f in files}
     banned = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "s2anet_tpu")
     for f in files:
         for mod in _imports(f):
@@ -178,7 +178,7 @@ def test_wrappers_have_no_try():
     catches it to run the plain version instead."""
     files = sorted(PORT.rglob("*.py"))
     assert {"moments.py", "bn.py", "step.py", "__main__.py", "trainer.py",
-            "loggers.py"} <= {f.name for f in files}
+            "loggers.py", "quant.py"} <= {f.name for f in files}
     for f in files:
         tree = ast.parse(f.read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), f
