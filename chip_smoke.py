@@ -134,8 +134,13 @@ last line:
                its bound (bytes over 3.35 TB/s or int8 operations over 1,979
                TOPS) with torch._int_mm (1x1, or a prebuilt im2col for 3x3,
                not timed) and cuDNN's bf16 convolution of the shape as
-               yardsticks, summed over a batch (table in --out
-               chip_smoke_int8.txt), the quantiser against its byte bound;
+               yardsticks, and, given --parent (a checkout of an earlier
+               tree), that tree's int8 conv timed in turns with this one,
+               summed over a batch (table in --out chip_smoke_int8.txt);
+               the kernel's registers and spills (-Xptxas -v); the host's
+               enqueue time of one quantised conv (quantiser and conv
+               wrappers; the earlier tree's beside it); the quantiser
+               against its byte bound;
                at batch 2 the kernel path against the path with the int8
                convs and quantiser plain (>= 95% of detections matched 1:1
                by rotated IoU >= 0.5); int8 against bf16 head outputs in
@@ -1312,9 +1317,47 @@ def im2col_int8(torch, xq, k: int, stride: int, pad: int, zp: int):
     return torch.cat(cols, -1).reshape(b * ho * wo, k * k * c).contiguous()
 
 
-def phase_quant(torch, dev, out_dir, root, bf16_listed_rate):
+def load_parent_quant(parent: Path):
+    """``ops/quant.py`` of the port in an earlier checkout ``parent``,
+    imported under another package name (its kernels build into its own
+    ``build/``), for timing that tree's int8 kernels beside this one's."""
+    import importlib
+    import importlib.util
+
+    name = "s2anet_tpu_torch_parent"
+    pkg = parent / "s2anet_tpu_torch"
+    spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(name + ".ops.quant")
+
+
+def ptxas_summary(log: str, kernel: str) -> str:
+    """Registers, spill bytes and shared memory of every instantiation of
+    ``kernel`` in an ``nvcc -Xptxas -v`` log, in one line."""
+    regs, spills, n, inside = set(), 0, 0, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+            n += inside
+        elif inside and "spill stores" in line:
+            parts = line.replace(",", "").split()
+            spills += int(parts[parts.index("spill") - 2]) + int(parts[-4])
+        elif inside and "Used" in line:
+            regs.add(int(line.split("Used")[1].split()[0]))
+    if n == 0:
+        return f"{kernel}: no ptxas output (library built earlier)"
+    return (f"{kernel}: {n} instantiations, {'/'.join(map(str, sorted(regs)))} registers, "
+            f"{spills} spill bytes (setmaxnreg: consumers 192, producer 120 at run time)")
+
+
+def phase_quant(torch, dev, out_dir, root, bf16_listed_rate, parent=None):
     """int8 serving (section 13 of the module docstring) on phase 11's data
-    in ``root``; returns the rows of its two kernels for the kernels line."""
+    in ``root``; ``parent``, a checkout of an earlier tree, adds its int8
+    conv timed in turns. Returns the rows of the two kernels for the
+    kernels line."""
     import torch.nn.functional as F
 
     from s2anet_tpu_torch import predict as port_predict
@@ -1326,9 +1369,17 @@ def phase_quant(torch, dev, out_dir, root, bf16_listed_rate):
     from s2anet_tpu_torch.ops import quant as pq
     from s2anet_tpu_torch.ops.iou_rotated import box_iou_rotated_plain
 
+    from s2anet_tpu_torch import _ext
+
     say("== 13. int8 serving")
     card = card_line()
     say(f"   card: {card}")
+    say(f"   {ptxas_summary(_ext.build_log.get('int8_conv', (0, ''))[1], 'int8_conv_sm90')}")
+    ppq = None
+    if parent is not None:
+        ppq = load_parent_quant(parent)
+        ppq.CONV.build()
+        say(f"   earlier tree for the in-turn timing: {parent}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cudnn.benchmark = True
@@ -1397,13 +1448,19 @@ def phase_quant(torch, dev, out_dir, root, bf16_listed_rate):
     rows = []
     lines = [card, "int8 conv per distinct shape (B, H, W, Cin, Cout, k, stride, pad, out, "
              "bias): calls a batch default/full, kernel ms, bound ms (by), % of bound, "
-             "plain ms, _int_mm ms (im2col prebuilt, not timed), cuDNN bf16 ms"]
+             "plain ms, _int_mm ms (im2col prebuilt, not timed), cuDNN bf16 ms, earlier "
+             "tree's kernel ms (in turns with this one; none without --parent), plan"]
     for key, (_, args) in sorted(convs.items()):
         xq, wq, _, _, zp, stride, pad, dtype, _ = args
         b, h, w, cin, cout, k = key[:6]
         ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
         m, kk = b * ho * wo, k * k * cin
-        t_k, _ = cuda_ms(torch, lambda a=args: pq.int8_conv2d_cuda(*a), 10)
+        t_par = None
+        if ppq is not None:
+            (t_k, _), (t_par, _) = paired_ms(torch, lambda a=args: pq.int8_conv2d_cuda(*a),
+                                             lambda a=args: ppq.int8_conv2d_cuda(*a), 10)
+        else:
+            t_k, _ = cuda_ms(torch, lambda a=args: pq.int8_conv2d_cuda(*a), 10)
         t_p, _ = cuda_ms(torch, lambda a=args: pq.int8_conv2d_plain(*a), 1, repeats=1)
         out_b = 2 if dtype == torch.bfloat16 else 4
         bd = bound(xq.numel() + wq.numel() + m * cout * out_b + 12 * cout,
@@ -1422,10 +1479,13 @@ def phase_quant(torch, dev, out_dir, root, bf16_listed_rate):
         t_c, _ = cuda_ms(torch, lambda xc=xc, wc=wc, s=stride, p=pad: F.conv2d(
             xc, wc, stride=s, padding=p), 10)
         del xc, wc
-        rows.append((key, t_k, bd, t_p, t_mm, t_c))
+        rows.append((key, t_k, bd, t_p, t_mm, t_c, t_par))
+        plan = pq._plan(dev, xq.shape, wq.shape, stride, pad, dtype)[0]
         lines.append(f"{key}: {counts['default'][0].get(key, 0)}/{counts['full'][0][key]}, "
                      f"{t_k:.4f}, {bd[0]:.4f} ({bd[1]}), {bd[0] / t_k:.1%}, {t_p:.3f}, "
-                     + (f"{t_mm:.4f}" if t_mm is not None else "none") + f", {t_c:.4f}")
+                     + (f"{t_mm:.4f}" if t_mm is not None else "none") + f", {t_c:.4f}, "
+                     + (f"{t_par:.4f}" if t_par is not None else "none")
+                     + f", bn {plan.bn} amode {plan.amode} kb {plan.kb} splits {plan.splits}")
     batch = {}
     for name in scopes:
         c = counts[name][0]
@@ -1436,7 +1496,8 @@ def phase_quant(torch, dev, out_dir, root, bf16_listed_rate):
             plain=sum(n * r[3] for n, r in sel),
             int_mm=sum(n * r[4] for n, r in sel if r[4] is not None),
             int_mm_kernel=sum(n * r[1] for n, r in sel if r[4] is not None),
-            cudnn=sum(n * r[5] for n, r in sel))
+            cudnn=sum(n * r[5] for n, r in sel),
+            parent=sum(n * r[6] for n, r in sel) if ppq is not None else None)
         bt = batch[name]
         say(f"   int8 conv, a batch, {name} scope ({sum(c.values())} calls, {len(c)} shapes): "
             f"kernel {bt['ms']:.3f} ms, bound {bt['bound']:.3f} ms ({bt['bound'] / bt['ms']:.1%}"
@@ -1444,10 +1505,38 @@ def phase_quant(torch, dev, out_dir, root, bf16_listed_rate):
             f"yardsticks: cuDNN bf16 convs of the same shapes {bt['cudnn']:.3f} ms, "
             f"torch._int_mm {bt['int_mm']:.3f} ms where it applies (Cout % 8 == 0; the "
             f"kernel on those shapes {bt['int_mm_kernel']:.3f} ms; 3x3 as a prebuilt im2col, "
-            f"its build not timed)")
-    for key, t_k, bd, t_p, t_mm, t_c in sorted(rows, key=lambda r: -r[1] * counts["full"][0][r[0]])[:8]:
+            f"its build not timed)" + (f"; the earlier tree's kernel in turns {bt['parent']:.3f} "
+                                      f"ms ({bt['parent'] / bt['ms']:.2f}x)"
+                                      if bt["parent"] is not None else ""))
+        say(f"     against the aims: faster than torch._int_mm on its shapes: "
+            f"{'met' if bt['int_mm_kernel'] < bt['int_mm'] else 'missed'}; at half of its bound "
+            f"or better ({2 * bt['bound']:.3f} ms): "
+            f"{'met' if bt['ms'] <= bt['bound'] * 2 else 'missed'}; "
+            f"below cuDNN bf16: {'met' if bt['ms'] < bt['cudnn'] else 'missed'}")
+    for key, t_k, bd, t_p, t_mm, t_c, t_par in sorted(
+            rows, key=lambda r: -r[1] * counts["full"][0][r[0]])[:8]:
         say(f"     {key}: kernel {t_k:.4f} ms ({bd[0] / t_k:.1%} of {bd[0]:.4f}, {bd[1]}), "
-            f"_int_mm " + (f"{t_mm:.4f}" if t_mm is not None else "none") + f", cuDNN bf16 {t_c:.4f}")
+            f"_int_mm " + (f"{t_mm:.4f}" if t_mm is not None else "none") + f", cuDNN bf16 "
+            f"{t_c:.4f}" + (f", earlier tree {t_par:.4f} ({t_par / t_k:.2f}x)"
+                            if t_par is not None else ""))
+    if ppq is not None:
+        for key in [(8, 128, 128, 256, 256, 3, 1, 1), (8, 32, 32, 2048, 256, 3, 2, 1)]:
+            r = next(r for r in rows if r[0][:8] == key)
+            say(f"     {key}: {r[6] / r[1]:.2f}x the earlier tree's kernel in turns (aim 2x: "
+                f"{'met' if r[6] >= 2 * r[1] else 'missed'})")
+    # the host's time to enqueue one quantised conv (the two wrappers), the
+    # P5 stack conv's operands, on an idle card
+    key = next(k for k in convs if k[:8] == (8, 32, 32, 256, 256, 3, 1, 1))
+    cargs = convs[key][1]
+    qargs = next(v[1] for k, v in quants.items() if k[0] == (8, 32, 32, 256))
+
+    def enqueue(mod):
+        return lambda: mod.int8_conv2d_cuda(mod.quantize_act_cuda(*qargs), *cargs[1:])
+    enq = {"this tree": host_ms(torch, enqueue(pq), repeats=21) * 1e3}
+    if ppq is not None:
+        enq["earlier tree"] = host_ms(torch, enqueue(ppq), repeats=21) * 1e3
+    say("   host enqueue of one quantised conv (quantiser + conv wrappers, P5 stack shape, "
+        "median of 21 on an idle card): " + "; ".join(f"{k} {v:.1f} us" for k, v in enq.items()))
     q_rows = []
     for key, (_, args) in sorted(quants.items()):
         t_q, _ = cuda_ms(torch, lambda a=args: pq.quantize_act_cuda(*a), 10)
@@ -1589,7 +1678,8 @@ def phase_quant(torch, dev, out_dir, root, bf16_listed_rate):
              bound_by="operations" if bt["ops_bound"] > bt["bound"] / 2 else "bytes",
              library_ms=None, int_mm_ms=bt["int_mm"], int_mm_kernel_ms=bt["int_mm_kernel"],
              cudnn_bf16_ms=bt["cudnn"], full_scope_ms=batch["full"]["ms"],
-             full_scope_bound_ms=batch["full"]["bound"], idle_share=idle["default"]),
+             full_scope_bound_ms=batch["full"]["bound"], idle_share=idle["default"],
+             earlier_tree_ms=bt["parent"], host_enqueue_us=enq["this tree"]),
         dict(name="quantize_act", source=src, replaces="s2anet_tpu/ops/quant.py:166",
              launches=launches["s2a_quantize_act"], path="val --quant int8",
              max_abs_err=q_err, ms=qt[0], plain_ms=qt[1], bound_ms=qt[2], bound_by="bytes",
@@ -1782,7 +1872,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
     parser.add_argument("--out", default=str(ROOT / "runs" / "chip_smoke"),
                         help="directory for the predictions and the profile table")
-    out_dir = Path(parser.parse_args(argv).out)
+    parser.add_argument("--parent", default=None,
+                        help="a checkout of an earlier tree: phase 13 times its int8 conv "
+                             "in turns with this one")
+    opts = parser.parse_args(argv)
+    out_dir = Path(opts.out)
+    parent = Path(opts.parent).resolve() if opts.parent else None
 
     import torch
     import torch.nn.functional as F
@@ -2286,7 +2381,7 @@ def main(argv=None) -> int:
     eval_launches, eval_root, bf16_listed_rate = phase_eval(torch, dev, out_dir, keep=True)
     try:
         phase_train_loop(torch, out_dir, train_summary["ms_per_step"])
-        quant_rows = phase_quant(torch, dev, out_dir, eval_root, bf16_listed_rate)
+        quant_rows = phase_quant(torch, dev, out_dir, eval_root, bf16_listed_rate, parent)
     finally:
         shutil.rmtree(eval_root, ignore_errors=True)  # phase 11's 100 MB of images
 

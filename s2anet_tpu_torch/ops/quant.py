@@ -20,7 +20,10 @@ Each of :func:`quantize_act` and :func:`int8_conv2d` runs its plain version
 for a CPU tensor and a kernel of ``csrc/int8_conv.cu`` for a CUDA tensor
 (``QUANTIZE``, ``CONV``). The plain versions compute the int32 sums in
 float64, where every partial sum is an exact integer
-(|acc| <= 9 * 2048 * 127 * 254 < 2^53).
+(|acc| <= 9 * 2048 * 127 * 254 < 2^53). The conv kernel's tiles, K split
+and persistent grid come from :func:`conv_plan`, a pure function of the
+shape and the SM count, kept per shape; the TMA map of each int8 weight is
+encoded once (:func:`weight_map`, filled when a conv is frozen to int8).
 
 :class:`QuantMixin` gives a conv module the modes ``none`` (float),
 ``calib`` (float, and the input's min and max folded into the range slot
@@ -37,12 +40,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._ext import I, P, Kernel
+from .._ext import I, P, Kernel, library
 
 QMAX = 127.0
 
@@ -54,7 +58,7 @@ QUANT_MODES = ("none", "calib", "int8")
 
 L = ctypes.c_longlong
 QUANTIZE = Kernel("int8_conv", "s2a_quantize_act", [P, P, P, P, L, I, P])
-CONV = Kernel("int8_conv", "s2a_int8_conv2d", [P] * 7 + [I] * 12 + [P])
+CONV = Kernel("int8_conv", "s2a_int8_conv2d", [P] * 12)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -156,9 +160,11 @@ def _stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def _scalar(name: str, t: torch.Tensor, dev) -> None:
-    if t.device != dev or t.dtype != torch.float32 or t.numel() != 1:
-        raise ValueError(f"{name}: scale and zero point must be float32 scalars on {dev}")
+def _scalar(name: str, t: torch.Tensor, idx: int) -> None:
+    # device indices, not torch.device objects: their comparison costs the
+    # host several times more, and these wrappers run for every conv
+    if t.get_device() != idx or t.dtype != torch.float32 or t.numel() != 1:
+        raise ValueError(f"{name}: scale and zero point must be float32 scalars on cuda:{idx}")
 
 
 def quantize_act_cuda(x, scale, zp):
@@ -167,40 +173,194 @@ def quantize_act_cuda(x, scale, zp):
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("quantize_act_cuda: the input must be contiguous (an NHWC view of "
                          "a channels-last activation) and 16-byte aligned")
-    _scalar("quantize_act_cuda", scale, x.device)
-    _scalar("quantize_act_cuda", zp, x.device)
+    _scalar("quantize_act_cuda", scale, x.get_device())
+    _scalar("quantize_act_cuda", zp, x.get_device())
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     QUANTIZE(x.data_ptr(), q.data_ptr(), scale.data_ptr(), zp.data_ptr(), x.numel(),
              _DTYPE_CODE[x.dtype], _stream(x))
     return q
 
 
+# the conv kernel's tile: BM output pixels; BK bytes of K a stage (or
+# ConvPlan.kb)
+BM, BK = 128, 128
+TICKET_SLOTS = 1024  # split-K tickets a device keeps (one a tile of a split launch)
+
+
+class ConvPlan(NamedTuple):
+    """How ``s2a_int8_conv2d`` covers one conv: tiles of ``BM x bn``
+    (``tiles`` of them, ``ntn`` along N); A by TMA as ``[M, Cin]``
+    (``amode`` 1: a 1x1 stride-1 conv without padding is a plain product),
+    by TMA as one box of ``bw x bh x BM/(bw*bh)`` pixels of ``(Wo, Ho, B)``
+    a tap (2: stride 1, ``Cin % 32 == 0``, bf16 output, the boxes tile the
+    output), or gathered (0); K's ``nk`` stages of ``kb`` bytes (128; 64 or
+    32 for a box mode conv with Cin 64 or 32, a stage in one tap) in
+    ``splits`` ranges of ``kper``, walked by ``grid`` persistent blocks."""
+    bn: int
+    amode: int
+    bw: int
+    bh: int
+    kb: int
+    splits: int
+    kper: int
+    grid: int
+    tiles: int
+    ntn: int
+    nk: int
+
+    @property
+    def workspace_ints(self) -> int:
+        """int32 partials of a split launch: one ``BM x bn`` tile a unit."""
+        return self.tiles * self.splits * BM * self.bn if self.splits > 1 else 0
+
+
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int, stride: int,
+              pad: int, out_bytes: int, sms: int) -> ConvPlan:
+    """The int8 conv kernel's plan for ``[b, h, w, cin] (*) [cout, kh, kw,
+    cin]`` with ``out_bytes``-byte outputs on a card of ``sms`` SMs (one
+    block an SM fits).
+
+    ``bn`` is 64 for ``cout <= 64``; else 256 where such tiles fill at
+    least 3/4 of a wave (bf16 output only: a float32 tile of 256 leaves no
+    room for the ring), else 128. A grid under one wave splits K so that
+    ``tiles x splits`` fills it (every range non-empty); the grid is at
+    most one wave, and blocks walk the ``tiles x splits`` units."""
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (w + 2 * pad - kw) // stride + 1
+    amode, box, kb = int(kh == kw == 1 and stride == 1 and pad == 0), None, BK
+    if not amode and stride == 1 and cin % 32 == 0 and out_bytes == 2:
+        box = tile_box(b, ho, wo)
+        if box:
+            amode, kb = 2, stage_bytes(cin)
+    mt = -(-(b * ho * wo) // BM)
+    nk = -(-(kh * kw * cin) // kb)
+    if cout <= 64:
+        bn = 64
+    elif out_bytes == 2 and cout > 128 and 4 * mt * -(-cout // 256) >= 3 * sms:
+        bn = 256
+    else:
+        bn = 128
+    ntn = -(-cout // bn)
+    tiles = mt * ntn
+    splits, kper = 1, nk
+    if tiles < sms and nk > 1:
+        kper = -(-nk // min(nk, sms // tiles))
+        splits = -(-nk // kper)
+    return ConvPlan(bn, amode, *(box or (0, 0)), kb, splits, kper, min(tiles * splits, sms),
+                    tiles, ntn, nk)
+
+
+def stage_bytes(cin: int) -> int:
+    """Bytes of K a stage when A comes as one box a tap (``cin % 32 ==
+    0``): the largest of 128, 64 and 32 that divides ``cin``, so a stage
+    lies in one tap."""
+    return next(d for d in (BK, 64, 32) if cin % d == 0)
+
+
+def tile_box(b: int, ho: int, wo: int):
+    """``(bw, bh)`` such that boxes of ``bw x bh x BM/(bw*bh)`` pixels of the
+    ``(wo, ho, b)`` output hold ``BM`` consecutive pixels each and tile it
+    exactly (row pieces, whole rows, or whole images), else None."""
+    if wo % BM == 0:
+        return BM, 1
+    if BM % wo == 0 and ho % (BM // wo) == 0:
+        return wo, BM // wo
+    if BM % (wo * ho) == 0 and b % (BM // (wo * ho)) == 0:
+        return wo, ho
+    return None
+
+
+_SMS: dict = {}      # device -> SM count
+_PLANS: dict = {}    # (device, shapes, stride, pad, dtype) -> (ConvPlan, dims, output shape)
+_SPLIT: dict = {}    # device -> (int32 workspace, uint32 tickets left zero by every launch)
+_WMAPS: dict = {}    # (wq address, cout, K, kb) -> 128-byte TMA map of wq
+
+
+def _plan(dev, xshape, wshape, stride: int, pad: int, dtype):
+    """``(plan, address of the kernel's dims array, output shape)``, made
+    once a shape."""
+    key = (dev.index, xshape, wshape, stride, pad, dtype)
+    entry = _PLANS.get(key)
+    if entry is None:
+        if dev.index not in _SMS:
+            _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+        b, h, w, cin = xshape
+        cout, kh, kw, _ = wshape
+        ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+        plan = conv_plan(b, h, w, cin, cout, kh, kw, stride, pad, dtype.itemsize,
+                         _SMS[dev.index])
+        if plan.splits > 1 and plan.tiles > TICKET_SLOTS:
+            raise ValueError(f"int8_conv2d_cuda: {plan.tiles} split tiles > {TICKET_SLOTS}")
+        dims = (ctypes.c_int * 20)(b, h, w, cin, cout, kh, kw, stride, pad, ho, wo,
+                                   _DTYPE_CODE[dtype], plan.bn, plan.amode, plan.bw, plan.bh,
+                                   plan.kb, plan.splits, plan.kper, plan.grid)
+        entry = _PLANS[key] = (plan, dims, ctypes.addressof(dims), (b, ho, wo, cout))
+    return entry[0], entry[2], entry[3]
+
+
+def _split_buffers(dev, ints: int):
+    """The device's split-K workspace (grown to ``ints`` int32) and tickets.
+    Split launches on one device must not run concurrently (on two streams
+    at once)."""
+    ws, tickets = _SPLIT.get(dev.index, (None, None))
+    if tickets is None:
+        tickets = torch.zeros(TICKET_SLOTS, dtype=torch.int32, device=dev)
+    if ws is None or ws.numel() < ints:
+        ws = torch.empty(ints, dtype=torch.int32, device=dev)
+    _SPLIT[dev.index] = (ws, tickets)
+    return ws.data_ptr(), tickets.data_ptr()
+
+
+def weight_map(wq: torch.Tensor, kb: int = BK) -> int:
+    """Host address of the TMA map of the int8 weights ``wq [Cout, kh, kw,
+    Cin]`` on the card for stages of ``kb`` bytes, encoded once: it depends
+    on the address and the shape alone, so it stays right for any tensor at
+    that address."""
+    cout, kh, kw, cin = wq.shape
+    k = kh * kw * cin
+    key = (wq.data_ptr(), cout, k, kb)
+    buf = _WMAPS.get(key)
+    if buf is None:
+        fn = library("int8_conv").s2a_int8_weight_map
+        fn.argtypes = [P, I, I, I, P]
+        fn.restype = ctypes.c_int
+        buf = ctypes.create_string_buffer(128)
+        rc = fn(wq.data_ptr(), cout, k, kb, buf)
+        if rc != 0:
+            raise RuntimeError(f"s2a_int8_weight_map failed: cudaError {rc}")
+        if len(_WMAPS) >= 4096:
+            _WMAPS.clear()
+        _WMAPS[key] = buf
+    return ctypes.addressof(buf)
+
+
 def int8_conv2d_cuda(xq, wq, mul, corr, zp, stride: int, pad: int, dtype, bias=None):
-    b, h, w, cin = xq.shape
-    cout, kh, kw, wcin = wq.shape
-    dev = xq.device
-    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or wcin != cin:
+    cin = xq.shape[-1]
+    cout, _, _, wcin = wq.shape
+    dev, idx = xq.device, xq.get_device()
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or wcin != cin or xq.dim() != 4:
         raise ValueError("int8_conv2d_cuda: int8 xq [B,H,W,Cin] and wq [Cout,kh,kw,Cin]")
     if cin % 16:
         raise ValueError(f"int8_conv2d_cuda: Cin = {cin} is not a multiple of 16")
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"int8_conv2d_cuda: unsupported output dtype {dtype}")
     for t in (xq, wq):
-        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+        if t.get_device() != idx or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("int8_conv2d_cuda: xq and wq must be contiguous and 16-byte "
                              "aligned on one device")
     for t, dt in ((mul, torch.float32), (corr, torch.int32)) + (
             ((bias, torch.float32),) if bias is not None else ()):
-        if t.device != dev or t.dtype != dt or t.shape != (cout,) or not t.is_contiguous():
+        if (t.get_device() != idx or t.dtype != dt or t.shape != (cout,)
+                or not t.is_contiguous()):
             raise ValueError(f"int8_conv2d_cuda: per-channel vectors must be contiguous "
                              f"[{cout}] on {dev} (mul, bias float32; corr int32)")
-    _scalar("int8_conv2d_cuda", zp, dev)
-    ho = (h + 2 * pad - kh) // stride + 1
-    wo = (w + 2 * pad - kw) // stride + 1
-    y = torch.empty(b, ho, wo, cout, dtype=dtype, device=dev)
+    _scalar("int8_conv2d_cuda", zp, idx)
+    plan, dims, out_shape = _plan(dev, xq.shape, wq.shape, stride, pad, dtype)
+    ws, tickets = _split_buffers(dev, plan.workspace_ints) if plan.splits > 1 else (None, None)
+    y = torch.empty(out_shape, dtype=dtype, device=dev)
     CONV(xq.data_ptr(), wq.data_ptr(), mul.data_ptr(), corr.data_ptr(),
          None if bias is None else bias.data_ptr(), zp.data_ptr(), y.data_ptr(),
-         b, h, w, cin, cout, kh, kw, stride, pad, ho, wo, _DTYPE_CODE[dtype], _stream(xq))
+         weight_map(wq, plan.kb), ws, tickets, dims, _stream(xq))
     return y
 
 
@@ -300,6 +460,10 @@ class QuantMixin:
         wq, sw = quantize_weights(self.quant_kernel().detach())
         scale, zp = act_qparams(self.act_min, self.act_max)
         self.q_wq = wq.permute(3, 0, 1, 2).contiguous()  # [Cout, kh, kw, Cin]
+        cin = self.q_wq.shape[-1]
+        if self.q_wq.is_cuda and cin % 16 == 0:  # the kernel's TMA maps, encoded once
+            for kb in {BK, stage_bytes(cin) if cin % 32 == 0 else BK}:
+                weight_map(self.q_wq, kb)
         self.q_scale, self.q_zp = scale, zp
         self.q_mul = scale[:, None] * sw[None]  # [slots, Cout]
         self.q_corr = (zp.to(torch.int32)[:, None]

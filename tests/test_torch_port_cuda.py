@@ -616,7 +616,10 @@ def test_quantize_act_kernel_equals_plain(dev, gen, dtype, n):
 # b, h, w, Cin, Cout, k, stride, pad, output type, bias: every shape class
 # of the serving path (backbone 1x1 / 3x3 / stride 2 / downsample, FPN
 # lateral and extras, the ODM class stack's Cin 32, the prediction heads'
-# Cout 5 and 15 in float32 and bfloat16, ragged M)
+# Cout 5 and 15 in float32 and bfloat16, ragged M), and every branch of
+# ops/quant.py::conv_plan: K split over blocks, a partial last stage of K
+# (K = 144, 288), M < 64, more tiles than one wave, 64 / 128 / 256-channel
+# tiles, A by TMA and gathered, no bias
 INT8_CONV_SHAPES = [
     (2, 32, 32, 64, 256, 1, 1, 0, torch.bfloat16, False),
     (2, 32, 32, 256, 512, 1, 2, 0, torch.bfloat16, False),
@@ -630,26 +633,85 @@ INT8_CONV_SHAPES = [
     (2, 16, 16, 256, 15, 1, 1, 0, torch.float32, True),
     (1, 7, 9, 64, 64, 3, 1, 1, torch.float32, False),
     (1, 1, 1, 256, 256, 3, 1, 1, torch.bfloat16, True),
+    (1, 16, 16, 2048, 256, 3, 2, 1, torch.bfloat16, True),   # split K, K = 18432
+    (1, 5, 7, 16, 48, 3, 1, 1, torch.bfloat16, True),        # M = 35, K = 144
+    (1, 5, 7, 16, 48, 1, 1, 0, torch.bfloat16, False),       # K = 16 by TMA
+    (2, 8, 8, 32, 256, 3, 1, 1, torch.bfloat16, False),      # K = 288
+    (8, 64, 64, 64, 256, 1, 1, 0, torch.bfloat16, True),     # 256-channel tiles, > 1 wave
+    (8, 64, 64, 256, 256, 3, 1, 1, torch.bfloat16, True),    # gathered, > 1 wave
+    (2, 16, 16, 256, 5, 1, 1, 0, torch.float32, False),
+    (2, 16, 16, 256, 15, 3, 1, 1, torch.float32, False),
+    (4, 40, 40, 256, 200, 3, 1, 1, torch.float32, True),     # float32, 128-channel tiles
 ]
+
+
+def _int8_operands(gen, dev, shape, zp=-77, saturated=False):
+    b, h, w, cin, cout, k, stride, pad, dtype, has_bias = shape
+    if saturated:  # every code at the clip
+        xq = (torch.randint(0, 2, (b, h, w, cin), generator=gen, device=dev) * 254 - 127)
+        wq = (torch.randint(0, 2, (cout, k, k, cin), generator=gen, device=dev) * 254 - 127)
+    else:
+        xq = torch.randint(-127, 128, (b, h, w, cin), generator=gen, device=dev)
+        wq = torch.randint(-127, 128, (cout, k, k, cin), generator=gen, device=dev)
+    xq, wq = xq.to(torch.int8), wq.to(torch.int8)
+    corr = (zp * wq.int().sum((1, 2, 3))).int()
+    mul = torch.rand(cout, generator=gen, device=dev) * 1e-4
+    bias = torch.randn(cout, generator=gen, device=dev) if has_bias else None
+    return xq, wq, mul, corr, torch.tensor(float(zp), device=dev), stride, pad, dtype, bias
 
 
 @pytest.mark.parametrize("shape", INT8_CONV_SHAPES, ids=str)
 def test_int8_conv_kernel_equals_plain(dev, gen, shape):
     from s2anet_tpu_torch.ops import quant as qt
 
-    b, h, w, cin, cout, k, stride, pad, dtype, has_bias = shape
-    xq = torch.randint(-127, 128, (b, h, w, cin), generator=gen, device=dev).to(torch.int8)
-    wq = torch.randint(-127, 128, (cout, k, k, cin), generator=gen, device=dev).to(torch.int8)
-    zp = torch.tensor(-77.0, device=dev)
-    corr = (-77 * wq.int().sum((1, 2, 3))).int()
-    mul = torch.rand(cout, generator=gen, device=dev) * 1e-4
-    bias = torch.randn(cout, generator=gen, device=dev) if has_bias else None
+    args = _int8_operands(gen, dev, shape)
     before = qt.CONV.launches
-    got = qt.int8_conv2d(xq, wq, mul, corr, zp, stride, pad, dtype, bias)
+    got = qt.int8_conv2d(*args)
     torch.cuda.synchronize()
-    want = qt.int8_conv2d_plain(xq, wq, mul, corr, zp, stride, pad, dtype, bias)
+    want = qt.int8_conv2d_plain(*args)
     assert qt.CONV.launches == before + 1
-    assert got.dtype == dtype and torch.equal(got, want)
+    assert got.dtype == shape[8] and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("zp", [127, -127])
+@pytest.mark.parametrize("shape", [
+    (2, 16, 16, 2048, 256, 3, 2, 1, torch.bfloat16, True),
+    (2, 33, 31, 128, 128, 3, 2, 1, torch.bfloat16, False),
+    (2, 16, 16, 256, 15, 3, 1, 1, torch.float32, True),
+    (2, 32, 32, 64, 256, 1, 1, 0, torch.bfloat16, True),
+], ids=str)
+def test_int8_conv_saturated_codes_equal_plain(dev, gen, shape, zp):
+    """Codes and zero point at the clip: the largest partial and total sums
+    (K = 18432 for the first shape) and the zero point in the padding."""
+    from s2anet_tpu_torch.ops import quant as qt
+
+    args = _int8_operands(gen, dev, shape, zp=zp, saturated=True)
+    got = qt.int8_conv2d(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qt.int8_conv2d_plain(*args))
+
+
+def test_int8_split_k_tickets_reset(dev, gen):
+    """Ten back-to-back launches of a split-K conv, and two split-K convs
+    in turns on one stream, all equal to the plain version: the last block
+    of each tile leaves its ticket at zero for the next launch."""
+    from s2anet_tpu_torch.ops import quant as qt
+
+    a1 = _int8_operands(gen, dev, (1, 16, 16, 2048, 256, 3, 2, 1, torch.bfloat16, True))
+    a2 = _int8_operands(gen, dev, (2, 8, 8, 256, 256, 3, 1, 1, torch.bfloat16, True))
+    for args in (a1, a2):
+        xq, wq = args[:2]
+        plan = qt.conv_plan(*xq.shape, wq.shape[0], wq.shape[1], wq.shape[2], args[5], args[6],
+                            2, torch.cuda.get_device_properties(dev).multi_processor_count)
+        assert plan.splits > 1
+    before = qt.CONV.launches
+    outs = [qt.int8_conv2d(*a1) for _ in range(10)]
+    outs2 = [qt.int8_conv2d(*a) for _ in range(3) for a in (a1, a2)]
+    torch.cuda.synchronize()
+    assert qt.CONV.launches == before + 16
+    w1, w2 = qt.int8_conv2d_plain(*a1), qt.int8_conv2d_plain(*a2)
+    assert all(torch.equal(o, w1) for o in outs)
+    assert all(torch.equal(o, w) for o, w in zip(outs2, [w1, w2] * 3))
 
 
 @pytest.mark.parametrize("scope", ["default", "full"])
