@@ -152,11 +152,38 @@ last line:
                -m s2anet_tpu_torch.val --quant int8 on the chips (launches,
                mAP50 against the labels made from the bf16 plain path) and
                over the listed chips (images/s beside phase 11's bf16)
+ 14. rect serving  24 synthetic images of HRSC2016's aspect ratios (600x1000
+               to 1100x900; PNG from the zlib writer, BGR .npy sidecars, YOLO
+               labels of 1 class, HRSC Annotation XML), configs/hrsc_r50.yaml
+               (R-50, 1 class, 800, bf16, batch 8, folded BN, seeded weights,
+               score_thr 0.005): the rect plan (more than one target shape,
+               each a multiple of 32, fewer pixels than square batches);
+               images/s of evaluate_on_chips with rect and square batches over
+               the images listed 8 times, 3 runs each in turns, each with its
+               first batch's seconds and those of the batches at a new shape
+               (cuDNN autotuning) apart; python -m s2anet_tpu_torch.val
+               --config configs/hrsc_r50.yaml --rect: the plan's shapes,
+               AlignConv 5 and NMS mask and sweep 1 launch a batch, map50,
+               precision and recall finite in [0, 1], every image's entry,
+               evaluate_hrsc against the XML finite; on one batch of each
+               target shape, in bf16 and float32 (TF32 off): the kernel path
+               against the plain path (bf16 >= 95% matched 1:1 by rotated IoU,
+               float32 by centre), the AlignConv forward at each level against
+               its plain version (phase 3's tolerances), and the NMS mask bits
+               and keeps on the batch's candidates; evaluate_hrsc against XML
+               made from the bf16 plain path's 64 best detections (plain path
+               1.0, kernel path >= 0.90); val --rect --quant int8: 100
+               quantiser and int8 conv launches a batch, both kernels bit-equal
+               to their plain versions on every shape the run met; a
+               weights/last of train/checkpoint.py whose EMA and model
+               weights differ, through val --weights with and without
+               --no-ema: both load, the detections differ
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path (training, or serving for the NMS kernels, ``val --quant int8``
 for the int8 kernels; ``eval_launches``: the val run of phase 11 for the
-kernels on that path), its largest error
+kernels on that path; ``rect_launches``: the ``val --rect`` run of phase 14,
+``val --rect --quant int8`` for the int8 kernels), its largest error
 against the plain version, its time, the plain version's and the library
 call's time where there is one, and the least time the card could take
 (``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
@@ -1868,6 +1895,363 @@ def phase_train_loop(torch, out_dir, step_ms):
     return summary
 
 
+# phase 14: rect serving of the HRSC2016 configuration
+HRSC_CONFIG = ROOT / "configs" / "hrsc_r50.yaml"
+# (h, w) of the synthetic HRSC-like images, 4 each: landscape, square and
+# portrait, as HRSC2016's (its images are about 1000 x 600 to 1100 x 900)
+HRSC_SHAPES = [(600, 1000), (512, 800), (700, 1000), (800, 800), (1000, 700), (1100, 900)]
+HRSC_LISTED = 8  # phase 14: the images listed this many times for the timed runs
+
+
+def hrsc_xml(name: str, hw, boxes, difficult) -> str:
+    """An HRSC2016 ``Annotation`` file: each object's ``mbox_cx, cy, w, h,
+    ang`` (the rotated box) and ``difficult``."""
+    objs = "".join(
+        f"<HRSC_Object><Object_ID>{i}</Object_ID><difficult>{int(d)}</difficult>"
+        + "".join(f"<{k}>{v!r}</{k}>" for k, v in zip(
+            ("mbox_cx", "mbox_cy", "mbox_w", "mbox_h", "mbox_ang"), map(float, b)))
+        + "</HRSC_Object>" for i, (b, d) in enumerate(zip(boxes, difficult)))
+    return (f"<HRSC_Image><Img_ID>{name}</Img_ID><Img_SizeHeight>{hw[0]}</Img_SizeHeight>"
+            f"<Img_SizeWidth>{hw[1]}</Img_SizeWidth><HRSC_Objects>{objs}</HRSC_Objects>"
+            f"</HRSC_Image>\n")
+
+
+def write_hrsc_data(root: Path, rng):
+    """24 images of HRSC2016's aspect ratios in the loader's layout
+    (``images/*.png`` from the zlib writer with BGR ``.npy`` sidecars written
+    after them, ``labels/*.txt`` YOLO rotated, 1 class) and an HRSC
+    ``Annotation/*.xml`` per image; names in shuffled order, so rect
+    batching reorders them. Returns ``{name: (h, w)}``."""
+    from s2anet_tpu_torch.data.synth import write_png
+    from s2anet_tpu_torch.ops.polyiou import rbox_vertices_np
+
+    for sub in ("images", "labels", "Annotation"):
+        (root / sub).mkdir(parents=True)
+    shapes = [hw for hw in HRSC_SHAPES for _ in range(4)]
+    dims = {}
+    for i, k in enumerate(rng.permutation(len(shapes))):
+        h, w = shapes[k]
+        name = f"1000{i:04d}"
+        img = rng.integers(0, 90, (h, w, 3), dtype=np.uint8)
+        boxes, _ = draw_objects(rng, img, 6)
+        png = root / "images" / f"{name}.png"
+        write_png(png, img)
+        np.save(png.with_suffix(".npy"), img[:, :, ::-1])  # BGR, newer than the PNG
+        polys = rbox_vertices_np(boxes).reshape(-1, 8) / np.tile([w, h], 4)
+        (root / "labels" / f"{name}.txt").write_text("".join(
+            "0 " + " ".join(f"{v:.6f}" for v in p) + "\n" for p in polys))
+        (root / "Annotation" / f"{name}.xml").write_text(
+            hrsc_xml(name, (h, w), boxes, rng.uniform(size=len(boxes)) < 0.15))
+        dims[name] = (h, w)
+    return dims
+
+
+def detection_agreement(torch, dev, det_k, det_p):
+    """``(centre, iou, total)``: the kernel path's detections ``det_k``
+    against the plain path's ``det_p`` (NumPy ``(boxes, labels, valid)``),
+    matched 1:1 by (label, score, centre within 1 px) and by (label, score,
+    rotated IoU >= 0.5), as fractions of the larger count, image by image."""
+    from s2anet_tpu_torch.ops import iou_rotated as iou
+
+    centre = by_iou = total = 0
+    for i in range(len(det_k[0])):
+        a, la = det_k[0][i][det_k[2][i]], det_k[1][i][det_k[2][i]]
+        bb, lb = det_p[0][i][det_p[2][i]], det_p[1][i][det_p[2][i]]
+        ious = iou.box_iou_rotated_plain(torch.from_numpy(a[:, :5]).to(dev),
+                                         torch.from_numpy(bb[:, :5]).to(dev))
+        centre += match_1to1(a, la, bb, lb)
+        by_iou += match_1to1(a, la, bb, lb, ious.cpu().numpy())
+        total += max(len(a), len(bb))
+    total = max(total, 1)
+    return centre / total, by_iou / total, total
+
+
+class TimedStep:
+    """A predictor whose ``predict`` calls are timed on the host, with the
+    shape of each batch (the evaluation runner's step)."""
+
+    def __init__(self, pred):
+        self.pred, self.device, self.calls = pred, pred.device, []
+
+    def predict(self, imgs):
+        t0 = time.perf_counter()
+        out = self.pred.predict(imgs)
+        self.calls.append((tuple(imgs.shape[1:3]), time.perf_counter() - t0))
+        return out
+
+
+def first_batch_split(out, calls, batch: int) -> str:
+    """A run's rate beside its first batch's seconds, the seconds of the
+    batches that met a new shape (cuDNN autotunes each on its first use),
+    and the host's median time to enqueue one of the other batches."""
+    seen, new_s, rest = set(), 0.0, []
+    for shape, s in calls:
+        if shape in seen:
+            rest.append(s)
+        else:
+            seen.add(shape)
+            new_s += s
+    new_n = len(seen)
+    loop = out["seconds"]["loop"]
+    steady = (out["n_images"] - batch * new_n) / max(loop - new_s, 1e-9)
+    return (f"{out['images_per_sec']:.2f} images/s; first batch {calls[0][1]:.3f} s, the "
+            f"{new_n} batches at a new shape {new_s:.3f} s; without them {steady:.2f} "
+            f"images/s, the host enqueueing one of them in "
+            f"{1e3 * median_spread(rest)[0] if rest else float('nan'):.2f} ms (median)")
+
+
+def phase_rect(torch, dev, out_dir):
+    """Rect serving (section 14 of the module docstring); returns the
+    launches of the kernels on its path: the ``val --rect`` run's, and a
+    ``val --rect --quant int8`` batch's."""
+    import dataclasses
+
+    from s2anet_tpu_torch import predict as port_predict
+    from s2anet_tpu_torch import val as port_val
+    from s2anet_tpu_torch.config import load_config
+    from s2anet_tpu_torch.data.dota import BatchLoader, DotaDataset
+    from s2anet_tpu_torch.eval.hrsc import evaluate_hrsc
+    from s2anet_tpu_torch.eval.runner import evaluate_on_chips
+    from s2anet_tpu_torch.models import head as head_mod
+    from s2anet_tpu_torch.models.detector import S2ANet
+    from s2anet_tpu_torch.ops import deform_conv as dc
+    from s2anet_tpu_torch.ops import nms_rotated as nms
+    from s2anet_tpu_torch.ops import quant as pq
+    from s2anet_tpu_torch.ops.polyiou import rbox_vertices_np
+    from s2anet_tpu_torch.ops.rbox import poly_to_rbox_np
+    from s2anet_tpu_torch.train.checkpoint import save_checkpoint
+    from s2anet_tpu_torch.train.optim import Optimizer
+    from s2anet_tpu_torch.train.state import ModelEMA
+
+    say("== 14. rect serving (HRSC2016 configuration)")
+    say(f"   card: {card_line()}")
+    root = out_dir / "hrsc"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    dims = write_hrsc_data(root, np.random.default_rng(SEED + 14))
+    images = root / "images"
+    names = sorted(dims)
+    say(f"   wrote {len(dims)} PNG images of shapes {sorted(set(dims.values()))} (zlib) with "
+        f"BGR .npy sidecars, YOLO labels (1 class) and HRSC Annotation XML, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    hcfg = load_config(HRSC_CONFIG, {"model": {"score_thr": 0.005},
+                                     "eval": {"batch_size": BATCH, "rect": True}})
+    size = hcfg.data.img_size
+    plan = BatchLoader(DotaDataset(images, img_size=size), BATCH, rect=True)._batch_plan()
+    nb = len(plan)
+    targets = [t for _, t in plan]
+    check(len(set(targets)) > 1 and all(h % 32 == 0 and w % 32 == 0 for h, w in targets)
+          and sum(h * w for h, w in targets) < nb * size * size,
+          f"rect plan at {size}, stride {hcfg.eval.rect_stride}: batch targets {targets}, "
+          f"{sum(h * w for h, w in targets) / (nb * size * size):.3f} of the square batches' "
+          f"pixels")
+
+    # the rate with --rect against square batches, 3 runs each in turns,
+    # before any other use of these shapes: the first batch at each shape
+    # carries cuDNN's autotuning
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = True
+    listed = root / f"hrsc_x{HRSC_LISTED}.txt"
+    listed.write_text("".join(f"{images / n}.png\n" for _ in range(HRSC_LISTED) for n in names))
+    lds = DotaDataset(listed, img_size=size)
+    pred16 = port_predict.S2ANetPredictor(hcfg.model, device="cuda", seed=SEED)
+    runs = {"rect": [], "square": []}
+    for _ in range(TURNS):
+        for mode, rows in runs.items():
+            step = TimedStep(pred16)
+            cfg = dataclasses.replace(hcfg, eval=dataclasses.replace(
+                hcfg.eval, rect=mode == "rect"))
+            rows.append((evaluate_on_chips(step, cfg, dataset=lds), step.calls))
+    say(f"   evaluate_on_chips over {len(lds)} listed images ({len(dims)} x {HRSC_LISTED}), "
+        f"R-50 1 class bf16 batch {BATCH}, score_thr 0.005, {TURNS} runs each in turns:")
+    for mode, rows in runs.items():
+        say(f"     {mode}: {rate_spread([o['images_per_sec'] for o, _ in rows])}; shapes "
+            f"{sorted({s for s, _ in rows[0][1]})}")
+        for k, (o, calls) in enumerate(rows):
+            say(f"       run {k + 1}: {first_batch_split(o, calls, BATCH)}; {loop_split(o)}")
+    # a batch alone at each of those shapes (no loader, input on the card):
+    # device time and the host's enqueue time
+    say(f"   a batch of {BATCH} alone per shape (uint8 input on the card; CUDA events, median "
+        f"of {REPEATS} loops of 3; host enqueue median of {REPEATS}):")
+    for shape in sorted({s for s, _ in runs["rect"][0][1]} | {(size, size)}):
+        xd = torch.randint(0, 256, (BATCH,) + shape + (3,), dtype=torch.uint8, device=dev)
+        t_dev, sp = cuda_ms(torch, lambda xd=xd: pred16.predict(xd), 3)
+        t_host = host_ms(torch, lambda xd=xd: pred16.predict(xd))
+        say(f"     {shape}: {t_dev:.2f} ms a batch (spread {sp:.1%}; {1e3 * BATCH / t_dev:.1f} "
+            f"images/s), enqueue {t_host:.2f} ms; {shape[0] * shape[1] / size ** 2:.3f} of "
+            f"the square's pixels")
+
+    # python -m s2anet_tpu_torch.val --config configs/hrsc_r50.yaml --rect
+    kernels = [dc.DEFORM_FWD, nms.NMS_MASK, nms.NMS_SWEEP]
+    args = ["--config", str(HRSC_CONFIG), "--rect", "--data-root", str(images),
+            "--batch-size", str(BATCH), "--conf-thres", "0.005", "--seed", str(SEED),
+            "--save-dir", str(root / "val")]
+    say(f"   python -m s2anet_tpu_torch.val {' '.join(args)}")
+    seen = []
+    real_predict = port_predict.S2ANetPredictor.predict
+
+    def recorded(self, imgs, **kw):
+        seen.append(tuple(imgs.shape[1:3]))
+        return real_predict(self, imgs, **kw)
+
+    for k in kernels:
+        k.launches = 0
+    with mock.patch.object(port_predict.S2ANetPredictor, "predict", recorded):
+        res = port_val.main(args)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in kernels}
+    check(seen == targets, f"val --rect batch shapes {seen} (the plan's)")
+    check(launches == {"s2a_deform_conv2d_fwd": 5 * nb, "s2a_nms_rotated_mask": nb,
+                       "s2a_nms_rotated_sweep": nb},
+          f"val --rect: launches {launches} over {nb} batches (AlignConv 5 a batch, NMS mask "
+          f"and sweep 1 a batch)")
+    m = (res["map50"], res["mp"], res["mr"])
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in m),
+          f"map50 {m[0]:.4f}, precision {m[1]:.4f}, recall {m[2]:.4f}: finite, in [0, 1]")
+    n_det = sum(len(d) for d in res["chip_dets"].values())
+    check(res["n_images"] == len(dims) and sorted(res["chip_dets"]) == names,
+          f"every image has its entry: {res['n_images']} images, {n_det} detections; "
+          f"{res['images_per_sec']:.2f} images/s ({loop_split(res)})")
+    hr = evaluate_hrsc([(img, s, p) for img, dets in res["chip_dets"].items()
+                        for _, s, p in dets], root / "Annotation", names)
+    check(np.isfinite(hr["ap"]) and 0.0 <= hr["ap"] <= 1.0,
+          f"evaluate_hrsc of these detections against the written XML: AP {hr['ap']:.4f} "
+          f"({hr['npos']} ships not difficult; random weights)")
+
+    # per batch shape: the kernel path against the plain path, the
+    # AlignConv forward at each level against its plain version, and the
+    # NMS mask and keeps on the batch's candidates
+    torch.backends.cudnn.benchmark = False
+    batches = {}
+    for batch in BatchLoader(DotaDataset(images, img_size=size), BATCH, rect=True):
+        batches.setdefault(batch["imgs"].shape[1:3], batch["imgs"].copy())
+    pred32 = port_predict.S2ANetPredictor(hcfg.model, device="cuda", dtype=torch.float32,
+                                          seed=SEED)
+    post = pred16.post_kwargs()
+    dc_err = {}
+    for shape, imgs in batches.items():
+        for dtype, pred in ((torch.bfloat16, pred16), (torch.float32, pred32)):
+            torch.backends.cudnn.allow_tf32 = dtype != torch.float32
+            x = pred.to_input(imgs)
+            taps = []
+            real_dc = head_mod.deform_conv2d
+
+            def tap(xl, ol, wl):
+                taps.append((xl, ol, wl))
+                return real_dc(xl, ol, wl)
+
+            with mock.patch.object(head_mod, "deform_conv2d", tap):
+                out_k = pred.forward(x)
+            bk, sk = head_mod.decode_levels(out_k, post["max_before_nms_per_level"])
+            det_k = [t.cpu().numpy() for t in head_mod.s2anet_get_bboxes(out_k, **post)]
+            with plain_path(head_mod, dc, nms):
+                det_p = [t.cpu().numpy() for t in pred.predict(imgs)]
+            centre, by_iou, total = detection_agreement(torch, dev, det_k, det_p)
+            name = str(dtype)[6:]
+            if dtype == torch.float32:
+                check(centre >= 0.95, f"{shape} float32: kernel vs plain path {total} "
+                      f"detections matched 1:1 by centre {centre:.4f}, by IoU {by_iou:.4f}")
+            else:
+                check(by_iou >= 0.95, f"{shape} bfloat16: kernel vs plain path {total} "
+                      f"detections matched 1:1 by IoU {by_iou:.4f}, by centre {centre:.4f}")
+            tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+            for lv, (xl, ol, wl) in zip(LEVELS, taps):
+                got = dc.deform_conv2d_cuda(xl, ol, wl)
+                torch.cuda.synchronize()
+                ref = dc.deform_conv2d_plain(xl, ol, wl)
+                err = (got.float() - ref.float()).abs().max().item()
+                dc_err[name] = max(dc_err.get(name, 0.0), err)
+                check(torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol),
+                      f"{shape} {name} AlignConv {lv} {tuple(xl.shape[1:3])} "
+                      f"({xl.shape[0] * xl.shape[1] * xl.shape[2]} cells): max |kernel - "
+                      f"plain| {err:.3g} (rtol = atol = {tol})")
+            _, cb, cl, cv = nms.select_candidates(bk, sk, post["score_thr"],
+                                                  post["pre_nms_cap"])
+            diff, pairs = mask_bits_differing(torch, nms, cb, cl, cv, post["iou_thr"])
+            keep_k = nms.nms_keep_cuda(cb, cl, cv, post["iou_thr"])
+            torch.cuda.synchronize()
+            keep_p = nms.nms_keep_plain(cb, cl, cv, post["iou_thr"])
+            check(diff == 0 and torch.equal(keep_k, keep_p),
+                  f"{shape} {name} NMS on the batch's candidates ({int(cv.sum())} valid): mask "
+                  f"bits differing {diff} ({pairs} suppressing pairs), keeps identical "
+                  f"({int(keep_k.sum())} kept)")
+    del pred32
+    torch.backends.cudnn.allow_tf32 = True
+
+    # under the metric: HRSC XML labels from the bf16 plain path's own
+    # detections (the GT_PER_CLASS best), every path scored against them
+    dets = {}
+    with plain_path(head_mod, dc, nms):
+        dets["plain"] = evaluate_on_chips(pred16, hcfg, dataset=DotaDataset(
+            images, img_size=size))["chip_dets"]
+    dets["kernel"] = evaluate_on_chips(pred16, hcfg, dataset=DotaDataset(
+        images, img_size=size))["chip_dets"]
+    scores = sorted((s for d in dets["plain"].values() for _, s, _ in d), reverse=True)
+    cut = scores[min(GT_PER_CLASS, len(scores)) - 1]
+    gt_dir = root / "Annotation_plain"
+    gt_dir.mkdir()
+    for img, d in dets["plain"].items():
+        polys = np.array([p for _, s, p in d if s >= cut]).reshape(-1, 8)
+        (gt_dir / f"{img}.xml").write_text(hrsc_xml(
+            img, dims[img], poly_to_rbox_np(polys) if len(polys) else [], [False] * len(polys)))
+    ap = {path: evaluate_hrsc([(img, s, p) for img, d in dets[path].items() for _, s, p in d],
+                              gt_dir, names)["ap"] for path in dets}
+    check(ap["plain"] >= 0.99 and ap["kernel"] >= 0.90,
+          f"evaluate_hrsc against XML from the bf16 plain path's {GT_PER_CLASS} best "
+          f"detections (score cut {cut:.5f}): plain path AP {ap['plain']:.4f} (1.0 by "
+          f"construction), kernel path {ap['kernel']:.4f} (bar 0.90, phase 11's bf16 bar)")
+    del pred16
+
+    # val --rect --quant int8: calibrated on square batches, then the int8
+    # kernels at the rect shapes, each against its plain version
+    for k in (pq.QUANTIZE, pq.CONV):
+        k.launches = 0
+    qres = {}
+    convs, quants = record_int8(pq, lambda: qres.update(port_val.main(
+        args + ["--quant", "int8", "--save-dir", str(root / "val_int8")])))
+    torch.cuda.synchronize()
+    q_launches = {k.symbol: k.launches for k in (pq.QUANTIZE, pq.CONV)}
+    check(q_launches == {"s2a_quantize_act": 100 * nb, "s2a_int8_conv2d": 100 * nb}
+          and qres["n_images"] == len(dims),
+          f"val --rect --quant int8 (default scope): launches {q_launches} over {nb} batches "
+          f"(100 each a batch, as at 1024^2); map50 {qres['map50']:.4f}, "
+          f"{qres['images_per_sec']:.2f} images/s")
+    n_q = sum(torch.equal(pq.quantize_act_cuda(*a), pq.quantize_act_plain(*a))
+              for _, a in quants.values())
+    n_c = sum(torch.equal(pq.int8_conv2d_cuda(*a), pq.int8_conv2d_plain(*a))
+              for _, a in convs.values())
+    torch.cuda.synchronize()
+    check(n_q == len(quants) and n_c == len(convs),
+          f"int8 at the rect shapes: quantiser kernel == plain bit for bit on {n_q} of "
+          f"{len(quants)} activation shapes, int8 conv on {n_c} of {len(convs)} conv shapes")
+    del convs, quants
+
+    # a training checkpoint: EMA weights by default, the model's with --no-ema
+    model = S2ANet(hcfg.model.backbone, hcfg.model.num_classes, tuple(hcfg.model.strides))
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    ema = ModelEMA(model)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.02)
+    last = root / "run" / "weights" / "last"
+    save_checkpoint(last, model, ema, Optimizer(model, lambda _: 0.0), 0.0, 0)
+    del model, ema
+    ck = {}
+    for name, extra in (("ema", []), ("model", ["--no-ema"])):
+        ck[name] = port_val.main(args[:-1] + [str(root / f"val_{name}"), "--weights",
+                                              str(last)] + extra)["chip_dets"]
+    differ = sum([d[:2] for d in ck["ema"][n]] != [d[:2] for d in ck["model"][n]]
+                 for n in names)
+    check(len(ck["ema"]) == len(ck["model"]) == len(dims) and differ > 0,
+          f"val --weights weights/last (train/checkpoint.py, EMA and model weights apart) "
+          f"and with --no-ema: both load; detections differ on {differ} of {len(dims)} images")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {**launches, **q_launches, "batches": nb}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
     parser.add_argument("--out", default=str(ROOT / "runs" / "chip_smoke"),
@@ -2104,18 +2488,8 @@ def main(argv=None) -> int:
         logit_err = max((a - b).abs().max().item()
                         for key in ("odm_cls", "odm_bbox")
                         for a, b in zip(out_k[key], out_p[key]))
-        centre = by_iou = total = 0
-        for i in range(BATCH):
-            a, la = det_k[0][i][det_k[2][i]], det_k[1][i][det_k[2][i]]
-            bb, lb = det_p[0][i][det_p[2][i]], det_p[1][i][det_p[2][i]]
-            ious = iou.box_iou_rotated_plain(torch.from_numpy(a[:, :5]).to(dev),
-                                             torch.from_numpy(bb[:, :5]).to(dev))
-            centre += match_1to1(a, la, bb, lb)
-            by_iou += match_1to1(a, la, bb, lb, ious.cpu().numpy())
-            total += max(len(a), len(bb))
-        total = max(total, 1)
-        return (bk, sk, int(det_k[2].sum()), centre / total, by_iou / total,
-                total, logit_err)
+        centre, by_iou, total = detection_agreement(torch, dev, det_k, det_p)
+        return bk, sk, int(det_k[2].sum()), centre, by_iou, total, logit_err
 
     boxes_k, scores_k, n_det, centre, by_iou, total, lerr = both_paths(pred, x)
     check(by_iou >= 0.95 and n_det > 0,
@@ -2384,6 +2758,12 @@ def main(argv=None) -> int:
         quant_rows = phase_quant(torch, dev, out_dir, eval_root, bf16_listed_rate, parent)
     finally:
         shutil.rmtree(eval_root, ignore_errors=True)  # phase 11's 100 MB of images
+    try:
+        rect = phase_rect(torch, dev, out_dir)
+    finally:
+        shutil.rmtree(out_dir / "hrsc", ignore_errors=True)
+    for r in quant_rows:  # the int8 rows: launches of the val --rect --quant int8 run
+        r["rect_launches"] = rect["s2a_int8_conv2d" if "conv" in r["name"] else "s2a_quantize_act"]
 
     say(card)
     src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"
@@ -2394,6 +2774,7 @@ def main(argv=None) -> int:
              replaces="s2anet_tpu/ops/pallas/deform_kernel.py:195",
              launches=train_launches["s2a_deform_conv2d_fwd"], path="train",
              eval_launches=eval_launches["s2a_deform_conv2d_fwd"],
+             rect_launches=rect["s2a_deform_conv2d_fwd"],
              max_abs_err=deform_err, ms=t_dk, plain_ms=t_dp, bound_ms=fwd_bound[0],
              bound_by=fwd_bound[1], library_ms=None, dense_conv_ms=dense_ms),
         dict(name="deform_conv2d_bwd", source=src_d,
@@ -2409,6 +2790,7 @@ def main(argv=None) -> int:
              replaces="s2anet_tpu/ops/pallas/iou_kernel.py:46",
              launches=launches["s2a_nms_rotated_mask"], path="serve",
              eval_launches=eval_launches["s2a_nms_rotated_mask"],
+             rect_launches=rect["s2a_nms_rotated_mask"],
              max_abs_err=float(mask_diff > 0), ms=t_mk, plain_ms=t_mp,
              bound_ms=m_bound[0], bound_by=m_bound[1], library_ms=None,
              clustered_ms=t_mc, clustered_bound_ms=c_bound[0]),
@@ -2416,6 +2798,7 @@ def main(argv=None) -> int:
              replaces="s2anet_tpu/ops/nms_rotated.py:28",
              launches=launches["s2a_nms_rotated_sweep"], path="serve",
              eval_launches=eval_launches["s2a_nms_rotated_sweep"],
+             rect_launches=rect["s2a_nms_rotated_sweep"],
              max_abs_err=float(keep_diff > 0), ms=t_sk, plain_ms=t_sp,
              bound_ms=sweep_bound[0], bound_by=sweep_bound[1], library_ms=None,
              no_valid_ms=t_s0),

@@ -3,12 +3,12 @@ a copy of its ``TrainConfig``, and the fields of its ``DataConfig`` and
 ``EvalConfig`` that training and evaluation read.
 
 Same names and defaults as ``s2anet_tpu/utils/config.py`` (a test holds them
-equal); the TPU-implementation fields and rect batching are left out. :func:`load_config` reads the repository's YAML files
+equal); the TPU-implementation fields are left out. :func:`load_config` reads the repository's YAML files
 (``configs/*.yaml``) with :mod:`.yaml_lite`, since the machine with the card
 has no pyyaml, merges overrides into the defaults and applies the class-name
 rule (:func:`resolve_names`). A file that sets a JAX-only field away from
 its default to something the port does not run (``with_orconv: false``,
-``bn_stats_images``, ``eval.rect``) is refused rather than
+``bn_stats_images``) is refused rather than
 ignored; the JAX-only implementation switches (``deform_impl``, ``bn_impl``
 and the like) have nothing to switch here and are ignored.
 """
@@ -145,6 +145,10 @@ class EvalConfig:
     use_07_metric: bool = True        # 11-point VOC AP
     save_results: bool = False        # dump per-class DOTA-format txt files
     task: int = 1                     # 1 = oriented (Task1), 2 = horizontal
+    # rect batching: shape-ordered batches, each letterboxed to its own
+    # minimal shape rounded up to rect_stride (data/dota.py::BatchLoader)
+    rect: bool = False
+    rect_stride: int = 32
 
 
 @dataclass
@@ -168,7 +172,6 @@ class Config:
 # only these values
 UNPORTED = {
     "model": {"with_orconv": True, "bn_stats_images": 0},
-    "eval": {"rect": False},
 }
 
 

@@ -31,8 +31,14 @@ batch``, so its batches equal the JAX loader's.
 
 **Batches** hold ``imgs`` as uint8 **RGB** ``[B, S, S, 3]``; the train step
 scales them by ``float32(1/255)`` on the device, as the JAX loader scales
-on the host (equal in float32). Process-mode workers and rect batching are
-not ported.
+on the host (equal in float32). Process-mode workers are not ported.
+
+**Rect batching** (``BatchLoader(rect=True)``, evaluation only): the images
+are ordered by aspect ratio (:meth:`DotaDataset.shapes`, cached in
+``shapes.cache.npz`` in the JAX package's format) and each batch is
+letterboxed to its own ``[B, th, tw, 3]``, the smallest shape of its
+images' aspect ratios rounded up to ``rect_stride``, as the JAX loader plans
+it; a side can exceed ``S`` by one stride (:meth:`BatchLoader._img_capacity`).
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ import torch
 
 from ..ops.rbox import poly_to_rbox_np
 from . import augment as A
-from .packed_cache import PackedImageCache
+from .packed_cache import PackedImageCache, _content_key
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 HAVE_PIL = importlib.util.find_spec("PIL") is not None
@@ -152,6 +158,47 @@ class DotaDataset:
     def __len__(self):
         return len(self.img_files)
 
+    def shapes(self) -> np.ndarray:
+        """Per-image original ``(h0, w0)``, ``[N, 2]`` int32, read once and
+        cached in ``shapes.cache.npz`` beside the first image under the
+        images' content key, the JAX package's file: either package reads
+        the other's (the cache is not written into a read-only directory).
+        No pixel is read: the shape comes from the pack's index, the fresh
+        sidecar's ``.npy`` header or, where PIL is installed, the image
+        file's header; an image with none of these gets ``(img_size,
+        img_size)``, the JAX package's shape for an image it cannot read (a
+        file that PIL cannot read raises here, as it does in
+        :meth:`load_image`)."""
+        if getattr(self, "_shapes", None) is not None:
+            return self._shapes
+        cache = self.img_files[0].parent / "shapes.cache.npz" if self.img_files else None
+        key = _content_key(self.img_files)
+        if cache is not None and cache.exists():
+            z = np.load(cache, allow_pickle=False)
+            if str(z["key"]) == key:
+                self._shapes = z["shapes"]
+                return self._shapes
+        shapes = np.zeros((len(self.img_files), 2), np.int32)
+        for i in range(len(self.img_files)):
+            shapes[i] = self._header_shape(i)
+        self._shapes = shapes
+        if cache is not None and os.access(cache.parent, os.W_OK):
+            np.savez(cache, key=np.str_(key), shapes=shapes)
+        return shapes
+
+    def _header_shape(self, i: int):
+        if self._pack is not None:
+            return self._pack.shape(i)[:2]
+        path = self.img_files[i]
+        if _sidecar_fresh(path):
+            return np.load(path.with_suffix(".npy"), mmap_mode="r").shape[:2]
+        if HAVE_PIL and path.exists():
+            from PIL import Image
+
+            with Image.open(path) as im:
+                return im.size[1], im.size[0]
+        return self.img_size, self.img_size
+
     def load_image(self, i: int) -> np.ndarray:
         """Image i, BGR uint8: from the pack, the fresh sidecar, or PIL."""
         if self._pack is not None:
@@ -161,9 +208,10 @@ class DotaDataset:
             return np.load(path.with_suffix(".npy"))
         return decode_image(path)
 
-    def _load_fitted(self, i: int):
-        """Image i letterboxed to the square size (BGR uint8), its
-        pixel-space polygons, classes and original (h, w)."""
+    def _load_fitted(self, i: int, target_shape=None):
+        """Image i letterboxed to ``target_shape`` (default the square
+        size; BGR uint8), its pixel-space polygons, classes and original
+        (h, w)."""
         img = self.load_image(i)
         h0, w0 = img.shape[:2]
         label = self.labels[i]
@@ -171,8 +219,9 @@ class DotaDataset:
         polys = label[:, 1:].copy()
         polys[:, 0::2] *= w0
         polys[:, 1::2] *= h0
-        if (h0, w0) != (self.img_size, self.img_size):
-            img, ratio, pad = A.letterbox(img, (self.img_size, self.img_size), PAD_VALUE)
+        tgt = tuple(target_shape or (self.img_size, self.img_size))
+        if (h0, w0) != tgt:
+            img, ratio, pad = A.letterbox(img, tgt, PAD_VALUE)
             polys = A.scale_polys(polys, ratio, pad)
         return img, polys, cls, (h0, w0)
 
@@ -196,10 +245,11 @@ class DotaDataset:
         return img, polys[keep], cls[keep]
 
     def get_sample(self, i: int, rng: Optional[np.random.Generator] = None,
-                   out: Optional[np.ndarray] = None) -> Dict:
-        """Sample i; ``imgs`` is RGB uint8 ``[S, S, 3]``, written into
-        ``out`` when given. Augmentation draws from ``rng``."""
-        img, polys, cls, (h0, w0) = self._load_fitted(i)
+                   out: Optional[np.ndarray] = None, target_shape=None) -> Dict:
+        """Sample i; ``imgs`` is RGB uint8 ``[S, S, 3]`` (or
+        ``target_shape``), written into ``out`` when given. Augmentation
+        draws from ``rng``."""
+        img, polys, cls, (h0, w0) = self._load_fitted(i, target_shape)
         if self.augment:
             img, polys, cls = self._augment(img, polys, cls, rng or np.random.default_rng())
         rboxes = (poly_to_rbox_np(polys).astype(np.float32) if len(polys)
@@ -239,16 +289,23 @@ class BatchLoader:
     this shard's share, the last one partial unless ``drop_last``.
 
     ``staging``, when given, provides each batch's image buffer:
-    ``staging.slot(i)`` returns a writable uint8 ``[B, S, S, 3]`` array for
-    batch i and may block until the buffer is free (the runner and the
-    trainer pass their ring of pinned buffers,
+    ``staging.slot(i, (th, tw))`` returns a writable contiguous uint8
+    ``[B, th, tw, 3]`` array for batch i and may block until the buffer is
+    free (the runner and the trainer pass their ring of pinned buffers,
     :class:`..eval.runner.BatchPipeline`).
+
+    With ``rect`` the batches follow :meth:`_batch_plan`: shape-ordered,
+    each letterboxed to its own target shape (not with ``shuffle``).
     """
 
     def __init__(self, dataset: DotaDataset, batch_size: int,
                  num_workers: Optional[int] = None,   # None = min(4, cores)
                  staging=None, shuffle: bool = False, seed: int = 0,
-                 shard: int = 0, num_shards: int = 1, drop_last: bool = False):
+                 shard: int = 0, num_shards: int = 1, drop_last: bool = False,
+                 rect: bool = False, rect_stride: int = 32, rect_pad: float = 0.5):
+        if rect and shuffle:
+            raise ValueError("rect batching is shape-ordered (evaluation only): "
+                             "not with shuffle")
         if num_workers is None:
             num_workers = min(4, os.cpu_count() or 1)
         self.ds = dataset
@@ -260,6 +317,9 @@ class BatchLoader:
         self.shard = shard
         self.num_shards = num_shards
         self.drop_last = drop_last
+        self.rect = rect
+        self.rect_stride = rect_stride
+        self.rect_pad = rect_pad
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -276,12 +336,46 @@ class BatchLoader:
         # every shard gets len(ds) // num_shards samples
         return idx[self.shard:: self.num_shards][: len(self.ds) // self.num_shards]
 
-    def load(self, bi: int, batch_idx) -> Dict:
+    def _batch_plan(self):
+        """``[(batch indices, target (th, tw) or None)]``, the JAX loader's
+        plan. Under ``rect`` the indices are stably sorted by aspect ratio
+        h0 / w0 and each batch's target is the shape of its ratios, ``[max,
+        1]`` when all are below 1, ``[1, 1 / min]`` when all are above,
+        else ``[1, 1]``, each side ``ceil(v * S / stride + pad) * stride``."""
+        idx = self._indices()
+        nb, bs = len(self), self.batch_size
+        if not self.rect:
+            return [(idx[i * bs:(i + 1) * bs], None) for i in range(nb)]
+        shapes = self.ds.shapes()[idx].astype(np.float64)
+        ar = shapes[:, 0] / shapes[:, 1]
+        idx = idx[np.argsort(ar, kind="stable")]
+        ar = np.sort(ar, kind="stable")
+        s, st, pad = self.ds.img_size, self.rect_stride, self.rect_pad
+        plan = []
+        for i in range(nb):
+            sl = slice(i * bs, (i + 1) * bs)
+            lo, hi = float(ar[sl].min()), float(ar[sl].max())
+            shape = [hi, 1.0] if hi < 1 else [1.0, 1.0 / lo] if lo > 1 else [1.0, 1.0]
+            plan.append((idx[sl], tuple(int(np.ceil(v * s / st + pad) * st) for v in shape)))
+        return plan
+
+    def _img_capacity(self) -> int:
+        """The most pixels an image of a batch can have: ``S * S``, or under
+        ``rect`` the square of the largest side a target can take (one
+        stride past ``S`` at most)."""
+        s = self.ds.img_size
+        if not self.rect:
+            return s * s
+        m = int(np.ceil(s / self.rect_stride + self.rect_pad) * self.rect_stride)
+        return m * m
+
+    def load(self, bi: int, batch_idx, target_shape=None) -> Dict:
         b, s = len(batch_idx), self.ds.img_size
-        imgs = (self.staging.slot(bi) if self.staging is not None
-                else np.empty((b, s, s, 3), np.uint8))[:b]
+        th, tw = target_shape or (s, s)
+        imgs = (self.staging.slot(bi, (th, tw)) if self.staging is not None
+                else np.empty((b, th, tw, 3), np.uint8))[:b]
         rng = np.random.default_rng(self.seed * 100003 + self.epoch + bi)
-        samples = [self.ds.get_sample(int(j), rng, out=imgs[k])
+        samples = [self.ds.get_sample(int(j), rng, out=imgs[k], target_shape=target_shape)
                    for k, j in enumerate(batch_idx)]
         out = {k: np.stack([smp[k] for smp in samples])
                for k in ("gt_boxes", "gt_classes", "gt_mask")}
@@ -292,12 +386,11 @@ class BatchLoader:
         return out
 
     def __iter__(self):
-        idx = self._indices()
-        batches = enumerate(idx[i * self.batch_size:(i + 1) * self.batch_size]
-                            for i in range(len(self)))
+        batches = ((bi, batch_idx, tgt)
+                   for bi, (batch_idx, tgt) in enumerate(self._batch_plan()))
         if self.num_workers <= 1:
-            for bi, batch_idx in batches:
-                yield self.load(bi, batch_idx)
+            for args in batches:
+                yield self.load(*args)
             return
         with ThreadPoolExecutor(self.num_workers) as pool:
             pending = deque(pool.submit(self.load, *a)

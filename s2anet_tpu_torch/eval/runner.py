@@ -31,6 +31,12 @@ order: the scope is checked before any loading, the step (a predictor
 built with the config, which folded BatchNorm at load) calibrates on the
 first ``quant_calib_batches`` batches, a short one wrap-padded to the
 batch size (:func:`calibration_batches`), then the loop runs int8.
+
+**Rect batches** (``cfg.eval.rect``): the loader orders the images by
+aspect ratio and letterboxes each batch to its own shape; the pipeline's
+slots hold the largest such shape and each batch is staged as one
+contiguous copy of its own. Calibration stays on the square letterbox, as
+in the JAX runner.
 """
 
 from __future__ import annotations
@@ -130,12 +136,15 @@ def save_dota_results(dets_by_class, class_names, out_dir):
 
 
 class BatchPipeline:
-    """Fixed-size uint8 RGB batches ``[B, S, S, 3]`` through a detection
+    """Fixed-size uint8 RGB batches ``[B, H, W, 3]`` through a detection
     step, one batch deep.
 
     Batch i is staged in slot ``i % n`` of a ring of ``n`` buffers (pinned
-    on a CUDA device): :meth:`slot` returns the slot once batch ``i - n``
-    has been read from it, and may be called from a loader thread. The
+    on a CUDA device), each of ``B * capacity * 3`` bytes (``capacity``
+    pixels an image, ``S * S`` by default): :meth:`slot` returns the slot
+    as a contiguous ``[B, H, W, 3]`` array of the batch's own shape (``S x
+    S`` unless given; rect batches differ batch to batch) once batch ``i -
+    n`` has been read from it, and may be called from a loader thread. The
     caller fills the slot, pads it to B rows, and passes ``(b, meta)`` to
     :meth:`run`, which submits it (``step(x)``, or ``step(x, meta)`` with
     ``with_batch``) and yields batch i-1's outputs once batch i is
@@ -149,15 +158,19 @@ class BatchPipeline:
     """
 
     def __init__(self, step, batch_size: int, img_size: int, n: int = PREFETCH + 2,
-                 device=None, with_batch: bool = False):
+                 device=None, with_batch: bool = False, capacity: Optional[int] = None):
         self.device = device if device is not None else getattr(step, "device", None)
         self.cuda = self.device is not None and self.device.type == "cuda"
         self.fn = getattr(step, "predict", step)
         self.with_batch = with_batch  # the step also takes the batch (its gts)
         self.n = n
-        self.bufs = [torch.empty((batch_size, img_size, img_size, 3), dtype=torch.uint8,
+        self.batch_size = batch_size
+        self.img_size = img_size
+        self.capacity = capacity or img_size * img_size
+        self.bufs = [torch.empty(batch_size * self.capacity * 3, dtype=torch.uint8,
                                  pin_memory=self.cuda) for _ in range(n)]
         self.views = [b.numpy() for b in self.bufs]
+        self._shapes = [(img_size, img_size)] * n  # per slot: its batch's (H, W)
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
         self._events = [None] * n  # per slot: the copy that read it last
         self._read = [-1] * n  # per slot: the last batch read from it
@@ -165,14 +178,25 @@ class BatchPipeline:
         self._closed = False
         self._host = [None, None]
 
-    def slot(self, i: int) -> np.ndarray:
-        """The ``[B, S, S, 3]`` buffer of batch i, once it is free."""
+    def slot(self, i: int, shape=None) -> np.ndarray:
+        """The buffer of batch i as a contiguous ``[B, H, W, 3]`` array,
+        ``(H, W)`` = ``shape`` (default ``(S, S)``), once it is free."""
         s = i % self.n
+        h, w = shape or (self.img_size, self.img_size)
+        if h * w > self.capacity:
+            raise ValueError(f"batch shape {h}x{w} exceeds the slots' {self.capacity} "
+                             f"pixels an image")
         with self._cond:
             self._cond.wait_for(lambda: self._closed or self._read[s] >= i - self.n)
         if self._events[s] is not None:
             self._events[s].synchronize()
-        return self.views[s]
+        self._shapes[s] = (h, w)
+        return self._view(self.views[s], s)
+
+    def _view(self, buf, s: int):
+        """Slot s's first ``B * H * W * 3`` bytes as ``[B, H, W, 3]``."""
+        h, w = self._shapes[s]
+        return buf[:self.batch_size * h * w * 3].reshape(self.batch_size, h, w, 3)
 
     def _release(self, i: int, event=None):
         with self._cond:
@@ -185,14 +209,15 @@ class BatchPipeline:
         to the loader. On a CUDA device the copy runs on the side stream and
         the compute stream waits for it; elsewhere it is a copy."""
         s = i % self.n
+        src = self._view(self.bufs[s], s)
         if not self.cuda:
-            x = self.bufs[s].clone()
+            x = src.clone()
             self._release(i)
             return x
         compute = torch.cuda.current_stream(self.device)
         copied = torch.cuda.Event()
         with torch.cuda.stream(self.stream):
-            x = self.bufs[s].to(self.device, non_blocking=True)
+            x = src.to(self.device, non_blocking=True)
             copied.record(self.stream)
         compute.wait_event(copied)
         x.record_stream(compute)  # x is freed only after the compute stream used it
@@ -203,7 +228,7 @@ class BatchPipeline:
         """Run the step on slot ``i % n``; returns a handle for :meth:`_fetch`."""
         extra = (meta,) if self.with_batch else ()
         if not self.cuda:
-            out = self.fn(self.views[i % self.n], *extra)
+            out = self.fn(self._view(self.views[i % self.n], i % self.n), *extra)
             self._release(i)
             return out
         outs = self.fn(self.stage(i), *extra)
@@ -325,13 +350,19 @@ def evaluate_on_chips(step, cfg, dataset: Optional[DotaDataset] = None,
     the device and its post-processing), and chip_dets: {chip: [(class_id,
     score, poly[8])]} in the chip's frame).
     ``save_dir`` dumps per-class DOTA-format result txts (chip-level, and
-    merged when ``is_map_split`` is off). A step that ``needs_calibration``
+    merged when ``is_map_split`` is off). Under ``cfg.eval.rect`` the
+    batches are rect batches (``BatchLoader(rect=True)``), each of its own
+    shape; not with ``with_loss``. A step that ``needs_calibration``
     (an int8 predictor) is calibrated first, on the first
     ``cfg.model.quant_calib_batches`` batches; the result then holds the
     ranges (``quant_ranges``).
     """
     if cfg.model.quant == "int8":  # a typo in the scope fails before any loading
         parse_scope(cfg.model.quant_scope)
+    rect = bool(cfg.eval.rect)
+    if rect and with_loss:
+        raise ValueError("rect evaluation computes no val losses (the losses take "
+                         "one square image size)")
     dataset = dataset or DotaDataset(
         cfg.data.val_list or cfg.data.root, img_size=cfg.data.img_size,
         max_gt=cfg.data.max_gt, cache_images=cfg.data.cache)
@@ -340,16 +371,18 @@ def evaluate_on_chips(step, cfg, dataset: Optional[DotaDataset] = None,
     if getattr(step, "needs_calibration", False):
         ranges = step.calibrate(calibration_batches(
             dataset, bs, max(1, int(cfg.model.quant_calib_batches))))
-    pipeline = BatchPipeline(step, bs, dataset.img_size, with_batch=with_loss)
     loader = BatchLoader(dataset, bs, num_workers=cfg.data.workers or None,
-                         staging=pipeline)
+                         rect=rect, rect_stride=cfg.eval.rect_stride)
+    pipeline = BatchPipeline(step, bs, dataset.img_size, with_batch=with_loss,
+                             capacity=loader._img_capacity())
+    loader.staging = pipeline
 
     def batches():
         for i, batch in enumerate(loader):
             b = len(batch["paths"])
             if b < bs:  # pad by wrapping the real images (and their gts)
                 sel = np.arange(bs - b) % b
-                view = pipeline.slot(i)
+                view = pipeline.slot(i, batch["imgs"].shape[1:3])
                 view[b:] = view[sel]
                 for key in ("gt_boxes", "gt_classes", "gt_mask"):
                     batch[key] = np.concatenate([batch[key], batch[key][sel]], 0)

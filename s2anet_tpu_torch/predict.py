@@ -16,8 +16,14 @@ merge seconds apart).
 Inputs: ``--source`` is a directory of ``.npy`` images (``[H, W, 3]``
 uint8 **RGB**, any size) or ``--synthetic N`` makes N random chips of
 ``--img-size`` from ``--seed``. Weights: ``--weights`` takes an ``.npz`` of
-JAX-layout variables (:func:`.models.convert.save_jax_npz`) or a ``.pt``
-port ``state_dict``; with none, the weights are random from ``--seed``.
+JAX-layout variables (:func:`.models.convert.save_jax_npz`), a port
+``state_dict`` (the trainer's ``weights/deploy``) or a training checkpoint
+(``weights/last``, ``best``, ``epochN``: its EMA weights, or its model's
+with ``--no-ema``); with none, the weights are random from ``--seed``.
+``--config`` reads a YAML config: ``--backbone``, ``--num-classes``,
+``--img-size``, ``--iou-thres`` and ``--names`` replace its values when
+typed, ``--conf`` defaults to its ``model.predict_score_thr`` (0.3), and
+the class names written are its names (``--names`` a preset).
 
 Not yet here: ``--mode spatial`` (the whole image, sharded by height).
 int8 serving (``ModelConfig.quant``) runs through ``python -m
@@ -39,7 +45,7 @@ import numpy as np
 import torch
 
 from . import native
-from .config import DOTA10_CLASSES, ModelConfig
+from .config import ModelConfig, load_config, prune_overrides
 from .data.merge import merge_chip_detections
 from .data.split import split_image
 from .eval.runner import BatchPipeline, detections_to_polys
@@ -53,17 +59,32 @@ from .train.step import scale_images
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def load_state_dict(path: str, arch: str):
-    """A port ``state_dict`` from a ``.pt`` file or JAX variables ``.npz``."""
-    if path.endswith(".npz"):
+def load_state_dict(path: str, arch: str, use_ema: bool = True):
+    """A port ``state_dict`` from JAX variables (``.npz``) or a
+    ``torch.save`` file: a deploy ``state_dict`` (``weights/deploy``), one
+    under ``"state_dict"``, or a training checkpoint of
+    :func:`.train.checkpoint.save_checkpoint` (``weights/last``, ``best``,
+    ``epochN``), whose EMA weights are taken unless ``use_ema`` is False. A
+    file with one set of weights serves for both."""
+    if str(path).endswith(".npz"):
         return state_dict_from_jax(load_jax_npz(path), arch)
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    return sd.get("state_dict", sd) if isinstance(sd, dict) else sd
+    if isinstance(sd, dict) and {"model", "ema"} <= sd.keys():
+        return sd["ema" if use_ema else "model"]
+    if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
+        sd = sd["state_dict"]
+    if not isinstance(sd, dict) or not all(torch.is_tensor(v) for v in sd.values()):
+        keys = sorted(map(str, sd)) if isinstance(sd, dict) else type(sd).__name__
+        raise ValueError(f"{path}: neither a state_dict nor a training checkpoint "
+                         f"(model, ema, ...); it holds {keys}")
+    return sd
 
 
 class S2ANetPredictor:
     """Load (or seed), fold and place the detector; ``predict`` runs
-    forward + decode + NMS on a batch of chips.
+    forward + decode + NMS on a batch of chips. ``weights`` is any file
+    :func:`load_state_dict` reads (a training checkpoint: its EMA weights,
+    or its model's with ``use_ema=False``).
 
     With ``cfg.quant == "int8"`` the convs of ``cfg.quant_scope`` (checked
     first) are set to calibrate before the cast, so their float32 weights
@@ -73,7 +94,7 @@ class S2ANetPredictor:
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), weights: str = "",
                  device: str = "cuda", dtype: torch.dtype = torch.bfloat16,
-                 seed: int = 0):
+                 seed: int = 0, use_ema: bool = True):
         if cfg.quant not in ("none", "int8"):
             raise ValueError(f"quant {cfg.quant!r}: expected none | int8")
         self.scope = parse_scope(cfg.quant_scope)
@@ -85,7 +106,7 @@ class S2ANetPredictor:
         model = S2ANet(cfg.backbone, cfg.num_classes, tuple(cfg.strides),
                        align_offset_clamp=cfg.align_offset_clamp)
         if weights:
-            model.load_state_dict(load_state_dict(weights, cfg.backbone))
+            model.load_state_dict(load_state_dict(weights, cfg.backbone, use_ema))
         else:
             model.init_weights(torch.Generator().manual_seed(seed))
         model.eval()
@@ -224,16 +245,23 @@ def parse_opt(argv=None):
     p.add_argument("--weights", default="",
                    help=".npz of JAX variables or .pt port state_dict; "
                         "none = random weights from --seed")
+    p.add_argument("--config", default="", help="yaml config path")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--backbone", default="resnet50")
-    p.add_argument("--num-classes", type=int, default=15)
+    # config-mirroring flags default to None: the config's value (else the
+    # dataclass default) applies unless the flag is typed
+    p.add_argument("--backbone", default=None, help="default resnet50")
+    p.add_argument("--num-classes", type=int, default=None, help="default 15")
+    p.add_argument("--names", default="",
+                   help="class preset: dota | dota-v1.5 | dota-v2.0 | hrsc")
+    p.add_argument("--no-ema", action="store_true",
+                   help="a training checkpoint's model weights, not its EMA")
     p.add_argument("--batch-size", type=int, default=8, help="windows per batch")
-    p.add_argument("--img-size", type=int, default=1024, help="window size")
+    p.add_argument("--img-size", type=int, default=None, help="window size (default 1024)")
     p.add_argument("--gap", type=int, default=200, help="window overlap")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
     p.add_argument("--device", default="cuda")
     p.add_argument("--conf", type=float, default=None,
-                   help="score threshold (default: predict_score_thr, 0.3)")
+                   help="score threshold (default: model.predict_score_thr, 0.3)")
     p.add_argument("--iou-thres", type=float, default=None,
                    help="NMS threshold, also of the cross-chip merge")
     p.add_argument("--save-dir", default="runs/predict_torch")
@@ -242,18 +270,19 @@ def parse_opt(argv=None):
 
 def main(argv=None) -> dict:
     opt = parse_opt(argv)
-    cfg = ModelConfig(backbone=opt.backbone, num_classes=opt.num_classes)
+    full = load_config(opt.config or None, prune_overrides({
+        "model": {"backbone": opt.backbone, "num_classes": opt.num_classes,
+                  "nms_iou_thr": opt.iou_thres},
+        "data": {"img_size": opt.img_size, "names": opt.names or None}}))
+    cfg = full.model
     cfg = dataclasses.replace(
-        cfg,
-        score_thr=opt.conf if opt.conf is not None else cfg.predict_score_thr,
-        nms_iou_thr=opt.iou_thres if opt.iou_thres is not None else cfg.nms_iou_thr,
-    )
+        cfg, score_thr=opt.conf if opt.conf is not None else cfg.predict_score_thr)
+    opt.img_size = full.data.img_size
     # the window slide img_size - gap stays positive
     gap = min(opt.gap, opt.img_size // 2)
-    names = (DOTA10_CLASSES if cfg.num_classes == len(DOTA10_CLASSES)
-             else [str(i) for i in range(cfg.num_classes)])
-    predictor = S2ANetPredictor(cfg, opt.weights, opt.device,
-                                DTYPES[opt.dtype], opt.seed)
+    names = full.data.names
+    predictor = S2ANetPredictor(cfg, opt.weights, opt.device, DTYPES[opt.dtype],
+                                opt.seed, use_ema=not opt.no_ema)
     torch.backends.cudnn.benchmark = True  # fixed shapes: autotune the convs
     save_dir = Path(opt.save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)

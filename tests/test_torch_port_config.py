@@ -2,7 +2,8 @@
 each ``configs/*.yaml``, with and without overrides and names presets,
 equals JAX's field by field; the YAML reader equals ``yaml.safe_load`` on
 those files; the saved ``config.yaml`` reads back to the same dict through
-both readers; a JAX-only setting the port does not run is refused."""
+both readers; a JAX-only setting the port does not run is refused
+(``eval.rect`` is ported and loads)."""
 
 import dataclasses
 from pathlib import Path
@@ -20,6 +21,7 @@ OVERRIDES = [
     {"data": {"names": "dota-v1.5", "img_size": 512}, "train": {"nominal_batch_size": 64}},
     {"data": {"names": ["x", "y"]}, "eval": {"batch_size": 4}},
     {"model": {"num_classes": 17}},
+    {"eval": {"rect": True, "rect_stride": 64}, "train": {"dtype": "float32"}},
 ]
 
 
@@ -77,7 +79,8 @@ def test_prune_overrides_matches_jax():
 
 @pytest.mark.parametrize("over", [{"model": {"with_orconv": False}},
                                   {"model": {"bn_stats_images": 2}},
-                                  {"eval": {"rect": True}}])
+                                  # rect is ported: the refusal beside it stays
+                                  {"model": {"bn_stats_images": 2}, "eval": {"rect": True}}])
 def test_unported_settings_raise(over, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         config.load_config(None, over)

@@ -3,6 +3,11 @@ input ring (slots reused across batches, a side-stream copy), the pinned
 output buffers read after their batch's event, and the wrap padding of a
 partial last batch give the detections of the plain synchronous call;
 so does ``predict.serve_chips``, which runs through the same pipeline.
+Rect batches (a shape per batch, staged from slots sized for the largest):
+each staged batch equals the loader's host batch, and the detections equal
+the plain calls'; the AlignConv forward on their non-square maps, whose
+cell counts are not multiples of the kernel's 128-cell tile, equals its
+plain version.
 
 They need an NVIDIA GPU; here they skip. On the card:
 
@@ -17,9 +22,10 @@ import pytest
 import torch
 
 from s2anet_tpu_torch.config import Config, DataConfig, EvalConfig, ModelConfig
-from s2anet_tpu_torch.data.dota import DotaDataset
+from s2anet_tpu_torch.data.dota import BatchLoader, DotaDataset
 from s2anet_tpu_torch.data.synth import write_png
 from s2anet_tpu_torch.eval import runner
+from s2anet_tpu_torch.ops import deform_conv as dc
 from s2anet_tpu_torch.predict import S2ANetPredictor, serve_chips
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -109,3 +115,121 @@ def test_cuda_scene_serving_equals_plain_calls(chips):
     for (c1, s1, p1), (c2, s2, p2) in zip(dk, dp):
         assert (c1, s1) == (c2, s2)
         np.testing.assert_array_equal(p1, p2)
+
+
+RECT_HW = [(96, 256), (256, 160), (128, 256), (200, 256), (256, 256), (100, 240), (256, 120)]
+
+
+@pytest.fixture(scope="module")
+def rect_chips(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    root = tmp_path_factory.mktemp("cuda_rect")
+    rng = np.random.default_rng(4)
+    (root / "images").mkdir()
+    for i, (h, w) in enumerate(RECT_HW):
+        img = rng.integers(0, 90, (h, w, 3), dtype=np.uint8)
+        chip_smoke.draw_objects(rng, img, 3, margin=30)
+        png = root / "images" / f"r{i:02d}.png"
+        write_png(png, img)
+        np.save(png.with_suffix(".npy"), img[:, :, ::-1])
+    return root / "images"
+
+
+def _rect_cfg(model, bs):
+    return Config(model=model, data=DataConfig(img_size=SIZE),
+                  eval=EvalConfig(batch_size=bs, rect=True))
+
+
+@pytest.mark.parametrize("bs", [2, 3])
+def test_cuda_rect_pipeline_stages_the_host_batch(rect_chips, bs):
+    """Each rect batch staged on the card equals the loader's host batch
+    (the short last one wrap-padded), whatever slot and shape came
+    before it."""
+    k = 4
+
+    class Recorder:
+        device = torch.device("cuda", 0)
+
+        def __init__(self):
+            self.seen = []
+
+        def predict(self, x):
+            assert x.is_cuda and x.is_contiguous()
+            self.seen.append(x.cpu().numpy())
+            b = x.shape[0]
+            return (torch.zeros(b, k, 6, device=x.device),
+                    torch.zeros(b, k, dtype=torch.int64, device=x.device),
+                    torch.zeros(b, k, dtype=torch.bool, device=x.device))
+
+    ds = DotaDataset(rect_chips, img_size=SIZE)
+    want = []
+    for batch in BatchLoader(ds, bs, rect=True):
+        imgs = batch["imgs"]
+        want.append(imgs[np.arange(bs) % len(imgs)])
+    rec = Recorder()
+    out = runner.evaluate_on_chips(rec, _rect_cfg(ModelConfig(backbone="resnet18"), bs),
+                                   dataset=ds)
+    assert out["n_images"] == len(RECT_HW) and len(rec.seen) == len(want)
+    assert len({w.shape for w in want}) > 1
+    for got, w in zip(rec.seen, want):
+        assert got.shape == w.shape
+        np.testing.assert_array_equal(got, w)
+
+
+def test_cuda_rect_pipeline_equals_plain_calls(rect_chips):
+    """Rect evaluation through the pinned ring gives the detections of the
+    plain synchronous calls, bit for bit, at every batch shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    model = ModelConfig(backbone="resnet18", score_thr=0.005)
+    pred = S2ANetPredictor(model, device="cuda", dtype=torch.float32, seed=1)
+    ds = DotaDataset(rect_chips, img_size=SIZE)
+    shapes = []
+
+    def plain(imgs):
+        shapes.append(imgs.shape[1:3])
+        return tuple(t.cpu() for t in pred.predict(imgs))
+
+    got = runner.evaluate_on_chips(pred, _rect_cfg(model, 2), dataset=ds)
+    want = runner.evaluate_on_chips(plain, _rect_cfg(model, 2), dataset=ds)
+    assert len(set(shapes)) > 1 and got["n_images"] == want["n_images"] == len(RECT_HW)
+    n = 0
+    for chip, dets in want["chip_dets"].items():
+        assert len(got["chip_dets"][chip]) == len(dets), chip
+        for (c1, s1, p1), (c2, s2, p2) in zip(got["chip_dets"][chip], dets):
+            assert (c1, s1) == (c2, s2)
+            np.testing.assert_array_equal(p1, p2)
+        n += len(dets)
+    assert n > 100 and got["map50"] == want["map50"]
+
+
+# the five levels of a rect batch of 2 at 544 x 832 (HRSC at 800, stride
+# 32), and of 1 at 1056 x 544 (DOTA at 1024): B * H * W never a multiple of 128
+RECT_LEVELS = [(2, 68, 104), (2, 34, 52), (2, 17, 26), (2, 9, 13), (2, 5, 7),
+               (1, 132, 68), (1, 17, 9), (1, 9, 5), (1, 5, 3)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,h,w", RECT_LEVELS, ids=lambda v: str(v))
+def test_deform_fwd_on_rect_maps(b, h, w, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert (b * h * w) % 128 and h != w
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(h * 1000 + w)
+    x = torch.randn(b, h, w, 256, generator=gen, device=dev).to(dtype)
+    off = torch.randn(b, h, w, 9, 2, generator=gen, device=dev) * 3.0
+    off[:, :, -1, :3, 1] += 40.0  # the last column samples past the right edge
+    wt = (torch.randn(3, 3, 256, 256, generator=gen, device=dev) * 0.05).to(dtype)
+    before = dc.DEFORM_FWD.launches
+    got = dc.deform_conv2d(x, off.to(dtype), wt)
+    torch.cuda.synchronize()
+    assert dc.DEFORM_FWD.launches == before + 1
+    ref = dc.deform_conv2d_plain(x, off.to(dtype), wt)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
