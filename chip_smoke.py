@@ -178,12 +178,44 @@ last line:
                weights/last of train/checkpoint.py whose EMA and model
                weights differ, through val --weights with and without
                --no-ema: both load, the detections differ
+ 15. options   the Trainer's model and data options. a: R-50 1024^2 batch 8
+               bf16 (phase 9's batch, clamp 6.0), the default configuration
+               and frozen_stages 1, norm_eval, bn_stats_images 2 and
+               with_orconv false (the bench's flags), each a warm-up and 3
+               timed train steps on the kernel path; before each, the plain
+               path's forward, loss and backward on a copy of the model's
+               state (plain AlignConv, BN and IoU); then the same in float32
+               (TF32 off): the kernel path's loss items within 1e-4
+               (relative) of the plain path's loss on the kernel path's
+               assignment codes, and the assignment's IoUs within 1e-3 on
+               both paths, the anchors of codes that differ too, so that
+               codes differ only where an IoU or an anchor lies that near a
+               threshold of the rule (the codes that
+               differ, each path's loss on its own codes and the bf16 gaps
+               are printed), the BNs in inference mode keeping
+               their running statistics on both paths, BN launches a step
+               (moments / pair / apply / dx 53, 42, 0, 53 with dx 106, 53),
+               AlignConv 5 + 5, IoU 2; bf16 ms/step of each beside the
+               default's. b: the
+               sampled-statistics kernels (prefix 2 of 8) at the 53 R-50 BN
+               shapes, f32 and bf16, against the plain finishing on the
+               kernel's sums (1e-6) and apply and the two-range dx bit for
+               bit; the stats kernel's device time over the 53 inputs on
+               the prefix against the full batch. c: 16 train and 8 val
+               synthetic chips, python -m s2anet_tpu_torch.train --config
+               (configs/dota_r50.yaml with mosaic 0.5, translate 0.1, scale
+               0.5, loader process), one epoch of 2 steps and validation:
+               finite losses, mAP50 in [0, 1], loader processes alive
+               during the steps; then the augmented loader alone over the
+               chips listed 4 times, process and thread mode in turns
+               (images/s)
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path (training, or serving for the NMS kernels, ``val --quant int8``
 for the int8 kernels; ``eval_launches``: the val run of phase 11 for the
 kernels on that path; ``rect_launches``: the ``val --rect`` run of phase 14,
-``val --rect --quant int8`` for the int8 kernels), its largest error
+``val --rect --quant int8`` for the int8 kernels; ``option_launches``: a
+train step of each configuration of phase 15), its largest error
 against the plain version, its time, the plain version's and the library
 call's time where there is one, and the least time the card could take
 (``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
@@ -2252,6 +2284,348 @@ def phase_rect(torch, dev, out_dir):
     return {**launches, **q_launches, "batches": nb}
 
 
+# phase 15: the Trainer's model and data options
+OPTION_FLAGS = {  # the bench's flags for configs/dota_r50.yaml with one option changed
+    "default": [],
+    "frozen_stages 1": ["--frozen-stages", "1"],
+    "norm_eval": ["--norm-eval"],
+    "bn_stats_images 2": ["--bn-stats-images", "2"],
+    "with_orconv false": ["--no-orconv"],
+}
+BN_SYMBOLS = ("s2a_channel_moments", "s2a_grad_channel_sums", "s2a_bn_apply", "s2a_bn_dx")
+# BN launches a step (moments, pair, apply, dx) of R-50: 53 layers, 11 of
+# them in the stem and layer1; sampled statistics run dx on two row ranges
+OPTION_BN = {"default": (53, 53, 53, 53), "frozen_stages 1": (42, 42, 42, 42),
+             "norm_eval": (0, 0, 0, 0), "bn_stats_images 2": (53, 53, 53, 106),
+             "with_orconv false": (53, 53, 53, 53)}
+OPTION_STEPS = 3  # timed train steps a configuration, each beside a plain step
+OPTION_TRAIN, OPTION_VAL, OPTION_LISTED = 16, 8, 4  # 15c: chips, and the loader's listing
+
+
+def phase_options(torch, dev, out_dir):
+    """Section 15 of the module docstring; returns ``{configuration:
+    launches a step}`` and the sampled-statistics kernels' rows."""
+    import copy
+    import csv
+    import dataclasses
+    import multiprocessing
+
+    from s2anet_tpu_torch.config import load_config
+    from s2anet_tpu_torch.data import synth
+    from s2anet_tpu_torch.data.dota import BatchLoader, DotaDataset
+    from s2anet_tpu_torch.models import assigner as as_mod
+    from s2anet_tpu_torch.models import bn as bn_mod
+    from s2anet_tpu_torch.models import head as head_mod
+    from s2anet_tpu_torch.models.head import compute_s2anet_loss
+    from s2anet_tpu_torch.ops import deform_conv as dc
+    from s2anet_tpu_torch.ops import iou_rotated as iou
+    from s2anet_tpu_torch.ops import moments as mo
+    from s2anet_tpu_torch.train import __main__ as train_cli
+    from s2anet_tpu_torch.train.step import train_step
+    from s2anet_tpu_torch.utils.callbacks import Callbacks
+
+    say("== 15. model and data options")
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = True
+    plain = (mock.patch.object(head_mod, "deform_conv2d", dc.deform_conv2d_plain),
+             mock.patch.object(dc, "deform_conv2d_bwd_cuda", dc.deform_conv2d_bwd_plain),
+             mock.patch.object(as_mod, "box_iou_rotated", iou.box_iou_rotated_plain),
+             *(mock.patch.object(bn_mod, n, getattr(mo, n + "_plain"))
+               for n in ("bn_stats", "bn_apply", "bn_grad", "bn_dx")))
+    base = ["--backbone", "resnet50", "--img-size", str(SIZE), "--batch-size", str(BATCH),
+            "--clamp", "6.0", "--synthetic", "1", "--seed", str(SEED)]
+    kernels = train_cli.KERNELS
+    ms, per_step = {}, {}
+    def recording(log):
+        """Patches that log each assignment's anchors, IoUs and codes; the
+        IoU function is the one in place when they are made."""
+        iou_fn, assign_fn = as_mod.box_iou_rotated, head_mod.assign_labels
+
+        def iou_logged(anchors, gt_boxes):
+            out = iou_fn(anchors, gt_boxes)
+            log.append({"anchors": anchors.detach(), "iou": out})
+            return out
+
+        def assign_logged(*args, **kw):
+            log[-1]["codes"] = assign_fn(*args, **kw)
+            return log[-1]["codes"]
+        return (mock.patch.object(as_mod, "box_iou_rotated", iou_logged),
+                mock.patch.object(head_mod, "assign_labels", assign_logged))
+
+    def shared(a, b):
+        """The largest difference of two paths' assignment inputs: the
+        IoUs (absolute), the anchors (relative to 1 + |value|), and the
+        anchors of the codes that differ."""
+        iou = max((x["iou"] - y["iou"]).abs().nan_to_num(0.0).max().item()
+                  for x, y in zip(a, b))
+        anc = flipped = 0.0
+        for x, y in zip(a, b):
+            d = ((x["anchors"] - y["anchors"]).abs() / (1 + y["anchors"].abs())).amax(-1)
+            d = d.expand(x["codes"].shape)
+            anc = max(anc, d.max().item())
+            differ = x["codes"] != y["codes"]
+            if differ.any().item():
+                flipped = max(flipped, d[differ].max().item())
+        return iou, anc, flipped
+
+    def steps(flags, dtype):
+        """A warm-up and 3 timed train steps on the kernel path; before
+        each, the plain path's forward, loss and backward on a copy of the
+        model's current state. Returns the step walls; a step, the loss
+        items' largest relative difference with the plain path's loss
+        evaluated on the kernel path's assignment codes, the same with each
+        path's own codes, the codes that differ and the largest difference
+        of the assignment's inputs (IoUs, anchors); the launches a step,
+        the BNs in inference mode and whether both paths kept their
+        statistics."""
+        cfg, model, optimizer, ema, batches = train_cli.setup(
+            train_cli.parse_opt(base + ["--dtype", dtype] + flags))
+        batch = batches[0]
+        frozen = [m for m in model.modules()
+                  if isinstance(m, torch.nn.BatchNorm2d) and not m.training]
+        stats0 = [(m.running_mean.clone(), m.running_var.clone()) for m in frozen]
+
+        def kept(net):
+            bns = [m for m in net.modules()
+                   if isinstance(m, torch.nn.BatchNorm2d) and not m.training]
+            return len(bns) == len(stats0) and all(
+                torch.equal(m.running_mean, a) and torch.equal(m.running_var, b)
+                for m, (a, b) in zip(bns, stats0))
+
+        def loss(out):
+            return compute_s2anet_loss(
+                out, batch["gt_boxes"], batch["gt_classes"], batch["gt_mask"],
+                imgs_size=(SIZE, SIZE), num_classes=cfg.num_classes, fl_gamma=cfg.fl_gamma,
+                fl_alpha=cfg.fl_alpha, smooth_beta=cfg.smooth_beta,
+                odm_balance=cfg.odm_balance, reg_balance=cfg.reg_balance,
+                fpn_balance=tuple(cfg.fpn_balance))
+
+        train_step(model, optimizer, ema, batch, cfg).tolist()  # warm-up: autotuning
+        walls, ok = [], True
+        rels = {"shared": [], "own": [], "codes": [], "iou": [], "anchors": [],
+                "flipped": []}
+        counts = dict.fromkeys((k.symbol for k in kernels), 0)
+        for _ in range(OPTION_STEPS):
+            twin = copy.deepcopy(model)
+            log_p, log_k = [], []
+            with contextlib.ExitStack() as stack:
+                for p in plain:
+                    stack.enter_context(p)
+                for p in recording(log_p):
+                    stack.enter_context(p)
+                out = twin(batch["imgs"])
+                total, items_p = loss(out)
+                total.backward()
+            ok &= kept(twin)
+            out = {k: [t.detach() for t in v] for k, v in out.items()}
+            del twin, total
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+            with contextlib.ExitStack() as stack:
+                for p in recording(log_k):
+                    stack.enter_context(p)
+                t0 = time.perf_counter()
+                items_k = train_step(model, optimizer, ema, batch, cfg)
+                items_k.tolist()
+                walls.append(1000 * (time.perf_counter() - t0))
+            for k in kernels:
+                counts[k.symbol] += k.launches
+            codes_k = iter([e["codes"] for e in log_k])
+            with torch.no_grad(), mock.patch.object(
+                    head_mod, "assign_labels", lambda *a, **kw: next(codes_k)):
+                items_s = loss(out)[1]
+            rels["shared"].append(((items_k - items_s).abs() / items_s.abs()).max().item())
+            rels["own"].append(((items_k - items_p.detach()).abs()
+                                / items_p.abs()).max().item())
+            rels["codes"].append(sum((x["codes"] != y["codes"]).sum().item()
+                                     for x, y in zip(log_k, log_p)))
+            for key, v in zip(("iou", "anchors", "flipped"), shared(log_k, log_p)):
+                rels[key].append(v)
+            del out, log_p, log_k
+        ok &= kept(model)
+        per = {k: v / OPTION_STEPS for k, v in counts.items()}
+        del model, optimizer, ema, batches, batch
+        torch.cuda.empty_cache()
+        return walls, rels, per, len(frozen), ok
+
+    def fmt(rels):
+        return ", ".join(f"{r:.3g}" for r in rels)
+
+    # a. each configuration in bf16 (times, launches, the loss items' gap),
+    # then in float32, TF32 off: the loss items within 1e-4 on one
+    # assignment, whose IoUs agree within 1e-3, and the anchors of codes
+    # that differ too (so a code differs only where its IoU or its anchor
+    # lies within 1e-3 of one of the rule's thresholds)
+    for name, flags in OPTION_FLAGS.items():
+        torch.backends.cudnn.allow_tf32 = True
+        walls, rels16, per, n_frozen, ok16 = steps(flags, "bfloat16")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        _, rels32, per32, _, ok32 = steps(flags, "float32")
+        torch.backends.cudnn.deterministic = False
+        ms[name] = float(np.median(walls))
+        per_step[name] = per
+        check(max(rels32["shared"]) <= 1e-4 and max(rels32["iou"]) <= 1e-3
+              and max(rels32["flipped"]) <= 1e-3 and ok16 and ok32 and per32 == per
+              and tuple(per[s] for s in BN_SYMBOLS) == OPTION_BN[name]
+              and per["s2a_deform_conv2d_fwd"] == per["s2a_deform_conv2d_bwd"] == 5
+              and per["s2a_box_iou_rotated"] == 2,
+              f"{name}: loss items kernel path vs plain path from the same state, max "
+              f"relative difference a step in float32 on the kernel path's assignment "
+              f"{fmt(rels32['shared'])} (bound 1e-4), the assignment's IoUs within "
+              f"{max(rels32['iou']):.3g} (bound 1e-3), codes differing "
+              f"{fmt(rels32['codes'])} with their anchors within "
+              f"{max(rels32['flipped']):.3g} (relative; bound 1e-3; all anchors "
+              f"{max(rels32['anchors']):.3g}), each path "
+              f"on its own codes {fmt(rels32['own'])}; bf16 (reported: bf16 rounding moves "
+              f"anchors across the assignment's IoU thresholds) on one assignment "
+              f"{fmt(rels16['shared'])}, on its own {fmt(rels16['own'])}, codes differing "
+              f"{fmt(rels16['codes'])}; {n_frozen} BNs in inference mode, their "
+              f"running statistics unchanged on both paths; launches a step (bf16 and "
+              f"float32): BN moments / pair / apply / dx "
+              f"{' / '.join(f'{per[s]:g}' for s in BN_SYMBOLS)}, AlignConv "
+              f"{per['s2a_deform_conv2d_fwd']:g} + {per['s2a_deform_conv2d_bwd']:g}, IoU "
+              f"{per['s2a_box_iou_rotated']:g}; {card}")
+        say(f"   {name}: bf16 {ms[name]:.2f} ms/step (median of {OPTION_STEPS}: "
+            f"{', '.join(f'{w:.2f}' for w in walls)}), default {ms['default']:.2f} ms/step "
+            f"in this call; {card}")
+    torch.backends.cudnn.allow_tf32 = True
+
+    # b. the sampled-statistics kernels at the 53 R-50 BN shapes, prefix 2 of 8
+    k_img = 2
+    worst = {"moments": 0.0, "pair": 0.0, "apply": 0.0, "dx": 0.0}
+    shapes = bn_input_shapes(torch, "resnet50", BATCH, SIZE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    eps, keep = 1e-5, 0.9
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, c, h, w in shapes:
+            x = (torch.rand(n, h, w, c, generator=gen, device=dev) * 2 + 0.3).to(dtype)
+            g = torch.randn(n, h, w, c, generator=gen, device=dev).to(dtype)
+            weight = torch.rand(c, generator=gen, device=dev) + 0.5
+            bias = torch.randn(c, generator=gen, device=dev) * 0.3
+            run = (torch.zeros(c, device=dev), torch.ones(c, device=dev),
+                   torch.tensor(0, device=dev))
+            run_p = tuple(t.clone() for t in run)
+            nk = k_img * h * w
+            stats = mo.bn_stats_cuda(x[:k_img], weight, *run, eps, keep)
+            mean, _, rstd, mul = stats
+            grad = mo.bn_grad_cuda(g, x, mean, rstd, nk)
+            sums = mo.channel_moments_cuda(x[:k_img]) + mo.grad_channel_sums_cuda(g, x)
+            a, b = grad[2], grad[3]
+            zero = torch.zeros_like(a)
+            y = mo.bn_apply_cuda(x, mean, mul, bias)
+            dx = torch.empty_like(x)
+            mo.bn_dx_cuda(g[:k_img], x[:k_img], mean, mul, a, b, out=dx[:k_img])
+            mo.bn_dx_cuda(g[k_img:], x[k_img:], mean, mul, zero, zero, out=dx[k_img:])
+            torch.cuda.synchronize()
+            ref = mo.stats_from_sums(sums[0], sums[1], nk, weight, *run_p, eps, keep)
+            ref_g = mo.grad_from_sums(sums[2], sums[3], nk, mean, rstd)
+            worst["moments"] = max([worst["moments"]] + [
+                rel_to_max(u, v) for u, v in zip(stats + run[:2], ref + run_p[:2])])
+            worst["pair"] = max([worst["pair"]] + [rel_to_max(u, v)
+                                                   for u, v in zip(grad, ref_g)])
+            worst["apply"] = max(worst["apply"], (y.float() - mo.bn_apply_plain(
+                x, mean, mul, bias).float()).abs().max().item())
+            want = torch.cat([mo.bn_dx_plain(g[:k_img], x[:k_img], mean, mul, a, b),
+                              mo.bn_dx_plain(g[k_img:], x[k_img:], mean, mul, zero, zero)])
+            worst["dx"] = max(worst["dx"], (dx.float() - want.float()).abs().max().item())
+            del x, g, y, dx, want
+    check(worst["moments"] <= 1e-6 and worst["pair"] <= 1e-6 and worst["apply"] == 0
+          and worst["dx"] == 0,
+          f"sampled statistics (prefix {k_img} of {BATCH}) at the {len(shapes)} R-50 BN "
+          f"shapes, f32 and bf16: statistics and running statistics within "
+          f"{worst['moments']:.3g}, pair finishing (count {k_img}*H*W) within "
+          f"{worst['pair']:.3g} of the plain finishing on the kernel's sums (bound 1e-6); "
+          f"apply and the two-range dx equal to the plain versions bit for bit; {card}")
+    data = []
+    for n, c, h, w in shapes:
+        x = (torch.rand(n, h, w, c, generator=gen, device=dev) * 2 + 0.3).bfloat16()
+        data.append((x, torch.ones(c, device=dev), torch.zeros(c, device=dev),
+                     torch.ones(c, device=dev), torch.tensor(0, device=dev)))
+    dev_ms = {}
+    for label, rows in (("full batch", BATCH), (f"prefix {k_img}", k_img)):
+        split = kernel_split(torch, lambda rows=rows: [
+            mo.bn_stats_cuda(x[:rows], wt, rm, rv, tr, eps, keep)
+            for x, wt, rm, rv, tr in data], 3)
+        dev_ms[label] = sum(split.values())
+    elems = sum(n * h * w * c for n, c, h, w in shapes)
+    sbound = bound(2 * elems * k_img / BATCH, 3 * elems * k_img / BATCH, F32_FLOP_S)
+    say(f"   stats kernel over the {len(shapes)} BN inputs of a step (bf16), device time "
+        f"(profiler): full batch {dev_ms['full batch']:.3f} ms, prefix {k_img} of {BATCH} "
+        f"{dev_ms[f'prefix {k_img}']:.3f} ms "
+        f"({dev_ms[f'prefix {k_img}'] / dev_ms['full batch']:.2f}x; the prefix's bound "
+        f"{sbound[0]:.3f} ms, {sbound[1]}); {card}")
+    del data
+    torch.cuda.empty_cache()
+
+    # c. a short epoch with mosaic, the warp and the process loader, then
+    # validation; and the augmented loader alone in both modes
+    root = out_dir / "options"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 15)
+    synth.write_split(root / "train", OPTION_TRAIN, rng, SIZE, 15, 3)
+    synth.write_split(root / "val", OPTION_VAL, rng, SIZE, 15, 3)
+    cfg = load_config(ROOT / "configs" / "dota_r50.yaml")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, mosaic=0.5, translate=0.1, scale=0.5, loader="process"))
+    cfg.save(root / "dota_r50_mosaic.yaml")
+    args = ["--config", str(root / "dota_r50_mosaic.yaml"), "--data-root",
+            str(root / "train" / "images"), "--val-root", str(root / "val" / "images"),
+            "--epochs", "1", "--batch-size", str(BATCH), "--seed", str(SEED),
+            "--save-dir", str(root / "run")]
+    say(f"   python -m s2anet_tpu_torch.train {' '.join(args)} (configs/dota_r50.yaml with "
+        f"mosaic 0.5, translate 0.1, scale 0.5, loader process)")
+    workers_seen = []
+    hooks = Callbacks()
+    hooks.register_action("on_train_batch_end", callback=lambda: workers_seen.append(
+        len(multiprocessing.active_children())))
+    for k in kernels:
+        k.launches = 0
+    summary = train_cli.main(args, callbacks=hooks)
+    with open(Path(summary["save_dir"]) / "results.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(v) for k, v in rows[0].items() if k.startswith(("train/", "val/"))]
+    steps = summary["steps"]
+    per = {k.symbol: k.launches for k in kernels}
+    check(len(rows) == 1 and len(losses) == 8 and all(np.isfinite(losses))
+          and 0.0 <= float(rows[0]["metrics/mAP_0.5"]) <= 1.0
+          and steps == OPTION_TRAIN // BATCH and min(workers_seen) > 0
+          and per["s2a_deform_conv2d_bwd"] == 5 * steps,
+          f"one epoch of {steps} steps with mosaic, translate, scale and {min(workers_seen)} "
+          f"loader processes, then validation: finite train and val losses, val mAP50 "
+          f"{float(rows[0]['metrics/mAP_0.5']):.4f}; {summary['ms_per_step']:.2f} ms/step "
+          f"to the device's end, the host waits {summary['loader_wait_ms_per_step']:.2f} ms "
+          f"a step for the loader; {card}")
+    listing = root / "train_listed.txt"
+    listing.write_text("".join(f"{q}\n" for _ in range(OPTION_LISTED)
+                               for q in sorted((root / "train" / "images").glob("*.png"))))
+    d = cfg.data
+    ds = DotaDataset(listing, img_size=SIZE, max_gt=d.max_gt, augment=True, fliplr=d.fliplr,
+                     flipud=d.flipud, rot90=d.degrees > 0, mosaic=d.mosaic,
+                     translate=d.translate, scale=d.scale)
+    rates = {"process": [], "thread": []}
+    for epoch in range(2):
+        for mode in rates:
+            loader = BatchLoader(ds, BATCH, shuffle=True, seed=SEED, drop_last=True,
+                                 mode=mode)
+            loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            n = sum(len(b["paths"]) for b in loader)
+            rates[mode].append(n / (time.perf_counter() - t0))
+            workers = loader.num_workers
+            say(f"     epoch {epoch}, {mode} mode ({workers} workers): "
+                f"{rates[mode][-1]:.2f} images/s")
+    say(f"   the loader alone with mosaic 0.5, translate 0.1, scale 0.5 (and the recipe's "
+        f"flips and rotations), {len(ds)} listed chips, 2 epochs each in turns: process "
+        f"{rate_spread(rates['process'])}, thread {rate_spread(rates['thread'])}; {card}")
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return per_step, ms, worst, dev_ms
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
     parser.add_argument("--out", default=str(ROOT / "runs" / "chip_smoke"),
@@ -2764,6 +3138,10 @@ def main(argv=None) -> int:
         shutil.rmtree(out_dir / "hrsc", ignore_errors=True)
     for r in quant_rows:  # the int8 rows: launches of the val --rect --quant int8 run
         r["rect_launches"] = rect["s2a_int8_conv2d" if "conv" in r["name"] else "s2a_quantize_act"]
+    try:
+        option_launches, option_ms, sampled_err, prefix_ms = phase_options(torch, dev, out_dir)
+    finally:
+        shutil.rmtree(out_dir / "options", ignore_errors=True)
 
     say(card)
     src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"
@@ -2804,15 +3182,25 @@ def main(argv=None) -> int:
              no_valid_ms=t_s0),
         dict(name="channel_moments", source=src_m,
              replaces="s2anet_tpu/ops/pallas/moments.py:43",
-             launches=train_launches["s2a_channel_moments"], path="train", **bn_rows["moments"]),
+             launches=train_launches["s2a_channel_moments"], path="train", **bn_rows["moments"],
+             sampled_max_abs_err=sampled_err["moments"],
+             prefix2_device_ms=prefix_ms["prefix 2"], full_device_ms=prefix_ms["full batch"]),
         dict(name="grad_channel_sums", source=src_m,
              replaces="s2anet_tpu/ops/pallas/moments.py:60",
-             launches=train_launches["s2a_grad_channel_sums"], path="train", **bn_rows["pair"]),
+             launches=train_launches["s2a_grad_channel_sums"], path="train", **bn_rows["pair"],
+             sampled_max_abs_err=sampled_err["pair"]),
         dict(name="bn_apply", source=src_m, replaces="s2anet_tpu/models/bn.py:108",
              launches=train_launches["s2a_bn_apply"], path="train", **bn_rows["apply"]),
         dict(name="bn_dx", source=src_m, replaces="s2anet_tpu/models/bn.py:140",
-             launches=train_launches["s2a_bn_dx"], path="train", **bn_rows["dx"]),
+             launches=train_launches["s2a_bn_dx"], path="train", **bn_rows["dx"],
+             sampled_max_abs_err=sampled_err["dx"]),
     ] + quant_rows
+    for r in rows:  # launches a train step of each configuration of phase 15
+        sym = "s2a_" + r["name"]
+        if sym in option_launches["default"]:
+            r["option_launches"] = {name: per[sym] for name, per in option_launches.items()}
+    say("   phase 15 ms/step: " + ", ".join(f"{name} {t:.2f}" for name, t in option_ms.items())
+        + f"; {card}")
     say(json.dumps({"kernels": [{"name": r.pop("name"), "route": "cuda", **r}
                                 for r in rows]}))
     say(json.dumps({"ok": True, "device": {

@@ -6,11 +6,9 @@ Same names and defaults as ``s2anet_tpu/utils/config.py`` (a test holds them
 equal); the TPU-implementation fields are left out. :func:`load_config` reads the repository's YAML files
 (``configs/*.yaml``) with :mod:`.yaml_lite`, since the machine with the card
 has no pyyaml, merges overrides into the defaults and applies the class-name
-rule (:func:`resolve_names`). A file that sets a JAX-only field away from
-its default to something the port does not run (``with_orconv: false``,
-``bn_stats_images``) is refused rather than
-ignored; the JAX-only implementation switches (``deform_impl``, ``bn_impl``
-and the like) have nothing to switch here and are ignored.
+rule (:func:`resolve_names`). The JAX-only implementation switches
+(``deform_impl``, ``bn_impl`` and the like) have nothing to switch here
+and are ignored.
 """
 
 from __future__ import annotations
@@ -30,6 +28,7 @@ class ModelConfig:
     strides: Sequence[int] = (8, 16, 32, 64, 128)
     frozen_stages: int = -1          # nothing frozen
     norm_eval: bool = False
+    with_orconv: bool = True
     # loss
     fl_gamma: float = 2.0
     fl_alpha: float = 0.5
@@ -37,6 +36,9 @@ class ModelConfig:
     odm_balance: float = 1.0
     reg_balance: float = 1.0
     fpn_balance: Sequence[float] = (1.0, 1.0, 1.0, 1.0, 1.0)
+    # >0: train-time BatchNorm statistics from the first k images of the
+    # batch (models/bn.py; JAX SampledBatchNorm); 0 = the whole batch
+    bn_stats_images: int = 0
     # clamp AlignConv sampling offsets to +-N feature cells (0 = off, exact
     # reference semantics)
     align_offset_clamp: float = 0.0
@@ -119,8 +121,8 @@ class DataConfig:
     max_gt: int = 512                 # padded gt capacity per image
     # image source: "" (BGR .npy sidecars, else PIL) | "packed" (data/dota.py)
     cache: str = ""
-    workers: int = 0                  # loader threads (0 = auto)
-    loader: str = "thread"            # "thread" only ("process" is not ported)
+    workers: int = 0                  # loader workers (0 = auto)
+    loader: str = "thread"            # "thread" | "process" (data/dota.py)
     # augmentation (the published recipe: fliplr + 90-degree rotation)
     fliplr: float = 0.5
     flipud: float = 0.0
@@ -166,13 +168,6 @@ class Config:
         both read it back to :meth:`to_dict` (tuples as lists)."""
         Path(path).parent.mkdir(parents=True, exist_ok=True)
         Path(path).write_text(yaml_lite.dump(self.to_dict()))
-
-
-# JAX-only fields whose other values change what is computed; the port runs
-# only these values
-UNPORTED = {
-    "model": {"with_orconv": True, "bn_stats_images": 0},
-}
 
 
 def resolve_names(cfg: Config, names_explicit: bool) -> Config:
@@ -225,16 +220,6 @@ def _merge(dc, overrides: dict):
     return dataclasses.replace(dc, **kwargs)
 
 
-def _check_unported(tree: dict, source: str) -> None:
-    for section, fields in UNPORTED.items():
-        for name, value in fields.items():
-            got = (tree.get(section) or {}).get(name, value)
-            if got != value:
-                raise NotImplementedError(
-                    f"{source}: {section}.{name} = {got!r} is not ported (the port "
-                    f"runs {value!r}); see ROADMAP.md Queue 1")
-
-
 def load_config(path=None, overrides: Optional[dict] = None) -> Config:
     """Defaults, then the YAML file at ``path``, then ``overrides``; class
     names resolved as ``s2anet_tpu/utils/config.py::load_config`` does."""
@@ -242,11 +227,9 @@ def load_config(path=None, overrides: Optional[dict] = None) -> Config:
     names_explicit = False
     if path:
         loaded = yaml_lite.load(Path(path).read_text()) or {}
-        _check_unported(loaded, str(path))
         names_explicit |= "names" in (loaded.get("data") or {})
         cfg = _merge(cfg, loaded)
     if overrides:
-        _check_unported(overrides, "overrides")
         names_explicit |= bool((overrides.get("data") or {}).get("names"))
         cfg = _merge(cfg, overrides)
     return resolve_names(cfg, names_explicit)

@@ -524,14 +524,17 @@ int s2a_channel_moments(const void* x, void* out, void* ws, void* tickets, int r
 // g, x [rows, C], one type; ws, tickets and chunks as above; out float32.
 // With mean null: out [2, C] = sum g, sum g*x. Otherwise out [5, C] = sum g
 // (= dbeta), sum g*x, dgamma, a = dbeta/n, b = rstd*dgamma/n, from the
-// forward's mean and rstd [C].
+// forward's mean and rstd [C]; n, the rows the forward's statistics came
+// from, is rows for full-batch statistics and fewer for sampled ones (the
+// sums still run over all rows).
 int s2a_grad_channel_sums(const void* g, const void* x, void* out, void* ws, void* tickets,
                           int rows, int C, int chunks, int dtype, const void* mean,
-                          const void* rstd, void* stream) {
+                          const void* rstd, int n, void* stream) {
   if (rows == 0 || C == 0) return 0;
+  if (mean != nullptr && n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FinishArgs f{nullptr, nullptr, nullptr, nullptr, static_cast<const float*>(mean),
-               static_cast<const float*>(rstd), 1.0f / (float)rows, 0.f, 0.f, 0.f};
+               static_cast<const float*>(rstd), 1.0f / (float)n, 0.f, 0.f, 0.f};
   const bool grad = mean != nullptr;
   if (dtype == 0)
     return grad ? launch_sums<float, true, GRAD>(x, g, out, ws, tickets, rows, C, chunks, f, s)

@@ -1,6 +1,7 @@
 """``s2anet_tpu/data/augment.py`` without cv2: letterboxing and the polygon
 / box maps in and out of it, the training flips, 90-degree rotations,
-centre filter and mixup (the JAX functions, copied), and the HSV jitter.
+centre filter, mixup, 4-image mosaic and its centre crop (the JAX
+functions, copied), the HSV jitter, and the scale / translate warp.
 
 ``letterbox`` resizes with ``torch.nn.functional.interpolate`` (bilinear,
 half-pixel centres, no antialiasing) on the CPU and rounds to uint8, where
@@ -13,9 +14,18 @@ image that needs no resize (square DOTA chips) letterboxes exactly as there.
 arithmetic with cv2's 12-bit division tables), the three lookup tables of
 the JAX function, and cv2's 8-bit ``HSV2BGR`` (float32 sector formula, as
 cv2's x86-64 build computes it: see :func:`hsv_to_bgr`), in NumPy: equal to
-the cv2 version bit for bit (tests/test_torch_port_augment.py). Mosaic and the affine warp
-(translate, scale) need cv2's resize and warpAffine; they are not ported
-(ROADMAP.md Queue 1) and :func:`not_ported` names them.
+the cv2 version bit for bit (tests/test_torch_port_augment.py).
+
+:func:`random_perspective_rotation` (scale and translate: an axis-aligned
+affine) warps with :func:`warp_affine`, a NumPy model of cv2's
+``warpAffine`` with ``INTER_LINEAR`` and a constant border: the inverse
+map in float64 as cv2 forms it, then source coordinates, interpolation
+weights and the bilinear blend in float32 with fused multiply-adds, as
+cv2 5's float32 kernels compute them on x86-64 (rows in vector blocks of
+16 pixels; the row's last ``W % 16`` pixels form their coordinates without
+the fused multiply-add), rounded half to even. The tests hold it within one
+grey level of cv2 (OpenCV 4's fixed-point kernel, 1/32-pixel coordinates
+and 15-bit weights, is up to several levels from cv2 5's).
 """
 
 from __future__ import annotations
@@ -221,11 +231,137 @@ def mixup(img1, polys1, cls1, img2, polys2, cls2,
     return img, polys, cls
 
 
-def not_ported(mosaic: float = 0.0, translate: float = 0.0, scale: float = 0.0) -> None:
-    """Raise where a configuration asks for an augmentation that needs
-    cv2's warps."""
-    asked = [n for n, v in (("mosaic", mosaic), ("translate", translate), ("scale", scale)) if v]
-    if asked:
-        raise NotImplementedError(
-            f"augmentation {', '.join(asked)} needs cv2's resize/warpAffine and is not "
-            f"ported: ROADMAP.md Queue 1, 'mosaic and the affine warp'")
+_WARP_BLOCK = 16  # pixels per iteration of cv2's vector loop (8-bit, 3 channels)
+
+
+def _fma32(a: np.ndarray, b, c) -> np.ndarray:
+    """``a*b + c`` rounded once to float32 (the float32 product is exact in
+    float64), as a fused multiply-add."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, border: int = 114) -> np.ndarray:
+    """``cv2.warpAffine(img, m, (w, h), borderValue=(border,) * 3)`` for
+    uint8 ``[H, W, C]`` and an axis-aligned ``m`` (``m[0, 1] = m[1, 0] =
+    0``): output pixel (x, y) samples the source at ``m^-1 (x, y)``,
+    bilinearly, with the border value for every tap outside the image."""
+    m = np.asarray(m, np.float64)
+    if m[0, 1] != 0 or m[1, 0] != 0:
+        raise ValueError("warp_affine models axis-aligned maps only (no rotation or shear)")
+    h, w = img.shape[:2]
+    f32 = np.float32
+    # cv2's inverse: d = 1/det, then b = -A t, in float64; used in float32
+    d = m[0, 0] * m[1, 1]
+    d = 1.0 / d if d != 0 else 0.0
+    a0, a4 = f32(m[1, 1] * d), f32(m[0, 0] * d)
+    a2, a5 = f32(-(m[1, 1] * d) * m[0, 2]), f32(-(m[0, 0] * d) * m[1, 2])
+    x = np.arange(w, dtype=f32)
+    sx = _fma32(x, a0, a2)
+    tail = w // _WARP_BLOCK * _WARP_BLOCK
+    sx[tail:] = x[tail:] * a0 + a2
+    sy = np.arange(h, dtype=f32) * a4 + a5
+    ix, iy = np.floor(sx), np.floor(sy)
+    ax, ay = (sx - ix)[None, :, None], (sy - iy)[:, None, None]
+    # one border pixel around the image: every tap outside lands on it
+    src = np.full((h + 2, w + 2) + img.shape[2:], border, np.uint8)
+    src[1:-1, 1:-1] = img
+    ix = ix.astype(np.int64)
+    iy = iy.astype(np.int64)
+    cols = [np.clip(ix + k, -1, w) + 1 for k in (0, 1)]
+    rows = [src[np.clip(iy + k, -1, h) + 1] for k in (0, 1)]
+    top, bottom = ([r[:, c].astype(f32) for c in cols] for r in rows)
+    t0 = _fma32(ax, top[1] - top[0], top[0])
+    t1 = _fma32(ax, bottom[1] - bottom[0], bottom[0])
+    out = _fma32(ay, t1 - t0, t0)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def random_perspective_rotation(
+    img: np.ndarray,
+    polys: np.ndarray,
+    degrees: float = 0.0,
+    translate: float = 0.0,
+    scale: float = 0.0,
+    rng: Optional[np.random.Generator] = None,
+):
+    """Affine warp of image and polygon corners (the JAX function, with
+    :func:`warp_affine`): a random 90-degree rotation when ``degrees > 0``,
+    then scale ``1 + U(-scale, scale)`` about the centre and a translation
+    of ``U(-translate, translate)`` of the image's size, drawn in that
+    order; boxes whose centre leaves the image are dropped by the caller
+    (:func:`filter_polys_center_inside`)."""
+    rng = rng or np.random.default_rng()
+    h, w = img.shape[:2]
+    if degrees > 0:
+        img, polys = rot90_image_and_polys(img, polys, int(rng.integers(0, 4)))
+        h, w = img.shape[:2]
+
+    s = 1.0 + rng.uniform(-scale, scale) if scale > 0 else 1.0
+    tx = rng.uniform(0.5 - translate, 0.5 + translate) * w - w / 2 if translate else 0.0
+    ty = rng.uniform(0.5 - translate, 0.5 + translate) * h - h / 2 if translate else 0.0
+    if s == 1.0 and tx == 0.0 and ty == 0.0:
+        return img, polys
+    m = np.array([[s, 0, tx + (1 - s) * w / 2],
+                  [0, s, ty + (1 - s) * h / 2]], np.float64)
+    img = warp_affine(img, m, 114)
+    if len(polys):
+        pts = polys.reshape(-1, 4, 2)
+        pts = pts * s + np.array([m[0, 2], m[1, 2]])
+        polys = pts.reshape(-1, 8)
+    return img, polys
+
+
+def mosaic4(samples, img_size: int, pad_value: int = 114,
+            rng: Optional[np.random.Generator] = None):
+    """4-image mosaic on a ``2*img_size`` square canvas around a random
+    centre; ``samples`` are 4 ``(img BGR uint8, polys [N, 8] px, cls [N])``
+    at any size. Returns ``(canvas, polys, cls)``, boxes whose centre falls
+    outside the canvas dropped."""
+    rng = rng or np.random.default_rng()
+    s = img_size
+    yc = int(rng.uniform(s * 0.5, s * 1.5))
+    xc = int(rng.uniform(s * 0.5, s * 1.5))
+    canvas = np.full((2 * s, 2 * s, 3), pad_value, np.uint8)
+    out_polys, out_cls = [], []
+    for i, (img, polys, cls) in enumerate(samples):
+        h, w = img.shape[:2]
+        if i == 0:   # top-left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+            x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
+        elif i == 1:  # top-right
+            x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, 2 * s), yc
+            x1b, y1b = 0, h - (y2a - y1a)
+        elif i == 2:  # bottom-left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(yc + h, 2 * s)
+            x1b, y1b = w - (x2a - x1a), 0
+        else:         # bottom-right
+            x1a, y1a, x2a, y2a = xc, yc, min(xc + w, 2 * s), min(yc + h, 2 * s)
+            x1b, y1b = 0, 0
+        canvas[y1a:y2a, x1a:x2a] = img[y1b:y1b + (y2a - y1a),
+                                       x1b:x1b + (x2a - x1a)]
+        if len(polys):
+            p = polys.copy()
+            p[:, 0::2] += x1a - x1b
+            p[:, 1::2] += y1a - y1b
+            out_polys.append(p)
+            out_cls.append(cls)
+    polys = np.concatenate(out_polys, 0) if out_polys else np.zeros((0, 8))
+    cls = np.concatenate(out_cls, 0) if out_cls else np.zeros((0,), np.int32)
+    keep = filter_polys_center_inside(polys, 2 * s, 2 * s)
+    return canvas, polys[keep], cls[keep]
+
+
+def mosaic_center_crop(canvas: np.ndarray, polys: np.ndarray, cls: np.ndarray,
+                       img_size: int):
+    """The centre ``img_size`` square of the mosaic canvas (object scale
+    kept); boxes whose centre falls outside it are dropped."""
+    s = img_size
+    off = s // 2
+    img = canvas[off:off + s, off:off + s]  # a view
+    if len(polys):
+        polys = polys.copy()
+        polys[:, 0::2] -= off
+        polys[:, 1::2] -= off
+        keep = filter_polys_center_inside(polys, s, s)
+        polys, cls = polys[keep], cls[keep]
+    return img, polys, cls

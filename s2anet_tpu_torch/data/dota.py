@@ -1,6 +1,6 @@
 """DOTA dataset and batch loader (host side, NumPy).
 
-``s2anet_tpu/data/dota.py`` in thread mode: YOLO-rotated label
+``s2anet_tpu/data/dota.py``: YOLO-rotated label
 files (``cls x1 y1 ... y4``, normalized) under ``labels/`` beside
 ``images/``, polygons turned into rotated boxes by the exact min-area
 rectangle, letterboxed to ``img_size`` where an image is not square at that
@@ -20,18 +20,27 @@ Both hold **BGR** uint8 (they are ``cv2.imread`` output). An image file
 without a fresh sidecar is decoded only where PIL is installed; otherwise it
 raises. Labels are read from the txt files; no label cache is written.
 
-**Training** (``augment=True``): mixup, the HSV jitter, 90-degree
-rotations and the two flips of the JAX ``get_sample``, drawing from the
-batch's generator in the JAX order (the mosaic and mixup draws come first
-even where their probability is 0); mosaic and the affine warp are not
-ported (the trainer refuses them, :func:`.augment.not_ported`). :class:`BatchLoader` shuffles per epoch
+**Training** (``augment=True``): the 4-image mosaic and its centre crop,
+mixup, the scale / translate warp, the HSV jitter, 90-degree rotations and
+the two flips of the JAX ``get_sample``, drawing from the batch's
+generator in the JAX order (the mosaic and mixup draws come first even
+where their probability is 0). :class:`BatchLoader` shuffles per epoch
 (``default_rng(seed + epoch)``), shards by ``shard::num_shards`` at equal
 lengths and seeds each batch's generator with ``seed * 100003 + epoch +
-batch``, so its batches equal the JAX loader's.
+batch``, so its batches equal the JAX loader's, in either mode.
 
 **Batches** hold ``imgs`` as uint8 **RGB** ``[B, S, S, 3]``; the train step
 scales them by ``float32(1/255)`` on the device, as the JAX loader scales
-on the host (equal in float32). Process-mode workers are not ported.
+on the host (equal in float32).
+
+**Process mode** (``mode="process"``, the JAX ``BatchLoader`` mode): forked
+worker processes write whole batches into slots of one anonymous shared
+memory map, and the iterating process copies each, in order, into the
+batch's buffer (the ``staging`` slot, or a new array). The workers are
+forked from the training process, which has already initialised CUDA: they
+run only the dataset's host code (NumPy, and PyTorch CPU operations on one
+thread) and never touch CUDA. Where the platform has no ``fork`` the
+loader raises (the JAX loader falls back to threads).
 
 **Rect batching** (``BatchLoader(rect=True)``, evaluation only): the images
 are ordered by aspect ratio (:meth:`DotaDataset.shapes`, cached in
@@ -43,8 +52,12 @@ it; a side can exceed ``S`` by one stride (:meth:`BatchLoader._img_capacity`).
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import itertools
+import mmap
+import multiprocessing as mp
+import multiprocessing.connection as mp_connection
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -61,6 +74,7 @@ from .packed_cache import PackedImageCache, _content_key
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 HAVE_PIL = importlib.util.find_spec("PIL") is not None
 CACHE_MODES = ("", "packed")
+LOADER_MODES = ("thread", "process")
 PAD_VALUE = 114  # letterbox border
 PREFETCH = 4  # batches the loader runs ahead
 _BGR_TO_RGB = torch.tensor([2, 1, 0])
@@ -130,6 +144,9 @@ class DotaDataset:
         rot90: bool = True,
         hsv=(0.0, 0.0, 0.0),
         mixup: float = 0.0,
+        mosaic: float = 0.0,
+        translate: float = 0.0,
+        scale: float = 0.0,
     ):
         if cache_images not in CACHE_MODES:
             raise ValueError(f"cache_images {cache_images!r}: one of {CACHE_MODES}")
@@ -141,6 +158,9 @@ class DotaDataset:
         self.rot90 = rot90
         self.hsv = tuple(hsv)
         self.mixup = mixup
+        self.mosaic = mosaic
+        self.translate = translate
+        self.scale = scale
         src = Path(source)
         if src.is_dir():
             self.img_files = sorted(
@@ -227,10 +247,19 @@ class DotaDataset:
 
     def _augment(self, img, polys, cls, rng: np.random.Generator):
         """The JAX ``get_sample`` augmentations, in its order of draws."""
-        rng.uniform()  # the mosaic draw (mosaic is not ported: always 0)
+        if rng.uniform() < self.mosaic:
+            others = [self._load_fitted(int(rng.integers(0, len(self))))[:3]
+                      for _ in range(3)]
+            canvas, polys, cls = A.mosaic4([(img, polys, cls)] + others, self.img_size,
+                                           PAD_VALUE, rng)
+            # 2s x 2s canvas -> its centre s x s (object scale kept)
+            img, polys, cls = A.mosaic_center_crop(canvas, polys, cls, self.img_size)
         if rng.uniform() < self.mixup:
             img2, polys2, cls2, _ = self._load_fitted(int(rng.integers(0, len(self))))
             img, polys, cls = A.mixup(img, polys, cls, img2, polys2, cls2, rng)
+        if self.translate or self.scale:
+            img, polys = A.random_perspective_rotation(img, polys, 0.0, self.translate,
+                                                       self.scale, rng)
         if any(self.hsv):
             img = A.hsv_augment(img, *self.hsv, rng=rng)
         if self.rot90:
@@ -284,9 +313,12 @@ class DotaDataset:
 
 
 class BatchLoader:
-    """Batches, each loaded by one of a pool of threads, ``PREFETCH``
-    batches ahead: in order, or shuffled per epoch (:meth:`set_epoch`), of
-    this shard's share, the last one partial unless ``drop_last``.
+    """Batches, each loaded by one of a pool of threads (``mode="thread"``)
+    or of forked worker processes (``mode="process"``, see the module
+    docstring), ``PREFETCH`` batches ahead (or one a worker process, if
+    more): in order, or shuffled per epoch (:meth:`set_epoch`), of this
+    shard's share, the last one partial unless ``drop_last``. Both modes
+    give the same batches: each batch's generator is seeded by its index.
 
     ``staging``, when given, provides each batch's image buffer:
     ``staging.slot(i, (th, tw))`` returns a writable contiguous uint8
@@ -299,15 +331,23 @@ class BatchLoader:
     """
 
     def __init__(self, dataset: DotaDataset, batch_size: int,
-                 num_workers: Optional[int] = None,   # None = min(4, cores)
+                 num_workers: Optional[int] = None,   # None: see below
                  staging=None, shuffle: bool = False, seed: int = 0,
                  shard: int = 0, num_shards: int = 1, drop_last: bool = False,
-                 rect: bool = False, rect_stride: int = 32, rect_pad: float = 0.5):
+                 rect: bool = False, rect_stride: int = 32, rect_pad: float = 0.5,
+                 mode: str = "thread"):
         if rect and shuffle:
             raise ValueError("rect batching is shape-ordered (evaluation only): "
                              "not with shuffle")
-        if num_workers is None:
-            num_workers = min(4, os.cpu_count() or 1)
+        if mode not in LOADER_MODES:
+            raise ValueError(f"loader mode {mode!r}: one of {LOADER_MODES}")
+        if mode == "process" and "fork" not in mp.get_all_start_methods():
+            raise RuntimeError("loader mode 'process' forks its workers, and this platform "
+                               "has no fork: use mode 'thread'")
+        if num_workers is None:  # as the JAX loader: every core, or up to 4 threads
+            cores = os.cpu_count() or 1
+            num_workers = cores if mode == "process" else min(4, cores)
+        self.mode = mode
         self.ds = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
@@ -369,25 +409,41 @@ class BatchLoader:
         m = int(np.ceil(s / self.rect_stride + self.rect_pad) * self.rect_stride)
         return m * m
 
-    def load(self, bi: int, batch_idx, target_shape=None) -> Dict:
-        b, s = len(batch_idx), self.ds.img_size
-        th, tw = target_shape or (s, s)
-        imgs = (self.staging.slot(bi, (th, tw)) if self.staging is not None
-                else np.empty((b, th, tw, 3), np.uint8))[:b]
+    def _shape(self, target_shape):
+        s = self.ds.img_size
+        return tuple(target_shape or (s, s))
+
+    def _buffer(self, bi: int, b: int, shape) -> np.ndarray:
+        """Batch bi's uint8 ``[b, th, tw, 3]`` image buffer: the staging
+        slot, or a new array."""
+        return (self.staging.slot(bi, shape) if self.staging is not None
+                else np.empty((b,) + shape + (3,), np.uint8))[:b]
+
+    def _fill(self, bi: int, batch_idx, target_shape, imgs: np.ndarray) -> Dict:
+        """Batch bi's samples, their images written into ``imgs``; returns
+        the rest of the batch."""
         rng = np.random.default_rng(self.seed * 100003 + self.epoch + bi)
         samples = [self.ds.get_sample(int(j), rng, out=imgs[k], target_shape=target_shape)
                    for k, j in enumerate(batch_idx)]
         out = {k: np.stack([smp[k] for smp in samples])
                for k in ("gt_boxes", "gt_classes", "gt_mask")}
-        out["imgs"] = imgs
         out["paths"] = [smp["path"] for smp in samples]
         out["orig_shapes"] = [smp["orig_shape"] for smp in samples]
         out["img_shapes"] = [smp["img_shape"] for smp in samples]
         return out
 
+    def load(self, bi: int, batch_idx, target_shape=None) -> Dict:
+        imgs = self._buffer(bi, len(batch_idx), self._shape(target_shape))
+        out = self._fill(bi, batch_idx, target_shape, imgs)
+        out["imgs"] = imgs
+        return out
+
     def __iter__(self):
         batches = ((bi, batch_idx, tgt)
                    for bi, (batch_idx, tgt) in enumerate(self._batch_plan()))
+        if self.mode == "process" and self.num_workers > 1 and len(self):
+            yield from self._iter_processes(list(batches))
+            return
         if self.num_workers <= 1:
             for args in batches:
                 yield self.load(*args)
@@ -401,3 +457,95 @@ class BatchLoader:
                 if nxt is not None:
                     pending.append(pool.submit(self.load, *nxt))
                 yield batch
+
+    # ------------------------------------------------------ process mode
+
+    def _slot_layout(self):
+        """Byte offsets of one slot's ``imgs`` (uint8, flat), ``gt_boxes``,
+        ``gt_classes`` (int32) and ``gt_mask``, and the slot's size, each
+        part 64-byte aligned."""
+        b, g = self.batch_size, self.ds.max_gt
+        sizes = [b * self._img_capacity() * 3, b * g * 5 * 4, b * g * 4, b * g]
+        offs = [0]
+        for n in sizes:
+            offs.append(offs[-1] + -(-n // 64) * 64)
+        return offs[:-1], offs[-1]
+
+    def _slot_views(self, buf, slot: int):
+        b, g = self.batch_size, self.ds.max_gt
+        (oi, ob, oc, om), size = self._slot_layout()
+        base = slot * size
+        return (np.frombuffer(buf, np.uint8, b * self._img_capacity() * 3, base + oi),
+                np.frombuffer(buf, np.float32, b * g * 5, base + ob).reshape(b, g, 5),
+                np.frombuffer(buf, np.int32, b * g, base + oc).reshape(b, g),
+                np.frombuffer(buf, bool, b * g, base + om).reshape(b, g))
+
+    def _iter_processes(self, batches):
+        """``batches`` ``[(bi, indices, target)]`` loaded by forked
+        workers into the slots of one anonymous shared map, yielded in
+        order, each copied out of its slot before the slot takes the next
+        batch. A worker that raises exits (its traceback goes to stderr)
+        and the loader raises here."""
+        ctx = mp.get_context("fork")
+        nslots = min(max(PREFETCH, self.num_workers), len(batches))
+        _, size = self._slot_layout()
+        buf = mmap.mmap(-1, nslots * size)  # MAP_SHARED: the forked workers write into it
+        tasks = ctx.SimpleQueue()
+        pipes = [ctx.Pipe(duplex=False) for _ in range(min(self.num_workers, nslots))]
+        workers = [ctx.Process(target=_batch_worker, args=(self, buf, tasks, send), daemon=True)
+                   for _, send in pipes]
+        results = [recv for recv, _ in pipes]
+        with contextlib.ExitStack() as stack:
+            stack.callback(_stop_workers, workers, tasks)
+            for w in workers:
+                w.start()
+            for slot in range(nslots):
+                tasks.put((slot,) + batches[slot])
+            ready, nxt = {}, nslots
+            for bi, batch_idx, tgt in batches:
+                while bi not in ready:
+                    done = mp_connection.wait(results + [w.sentinel for w in workers])
+                    dead = [w for w in workers if w.sentinel in done]
+                    if dead:
+                        raise RuntimeError(f"a loader worker process died (exit code "
+                                           f"{dead[0].exitcode}); see its traceback above")
+                    for conn in done:
+                        got_bi, slot, meta = conn.recv()
+                        ready[got_bi] = slot, meta
+                slot, meta = ready.pop(bi)
+                n, shape = len(batch_idx), self._shape(tgt)
+                imgs_f, boxes, classes, mask = self._slot_views(buf, slot)
+                imgs = self._buffer(bi, n, shape)
+                np.copyto(imgs, imgs_f[: imgs.size].reshape(imgs.shape))
+                out = dict(meta, imgs=imgs, gt_boxes=boxes[:n].copy(),
+                           gt_classes=classes[:n].copy(), gt_mask=mask[:n].copy())
+                del imgs_f, boxes, classes, mask
+                if nxt < len(batches):
+                    tasks.put((slot,) + batches[nxt])
+                    nxt += 1
+                yield out
+
+
+def _stop_workers(workers, tasks) -> None:
+    for _ in workers:
+        tasks.put(None)
+    for w in workers:
+        w.join(timeout=5)
+        if w.is_alive():
+            w.terminate()
+
+
+def _batch_worker(loader: BatchLoader, buf, tasks, results) -> None:
+    """A forked loader worker: batches into shared-memory slots until the
+    ``None`` task. Host work only: the training process's CUDA state is
+    never touched here."""
+    torch.set_num_threads(1)  # one worker, one core; no nested thread pools
+    for slot, bi, batch_idx, tgt in iter(tasks.get, None):
+        imgs_f, boxes, classes, mask = loader._slot_views(buf, slot)
+        n, shape = len(batch_idx), loader._shape(tgt)
+        imgs = imgs_f[: n * shape[0] * shape[1] * 3].reshape((n,) + shape + (3,))
+        out = loader._fill(bi, batch_idx, tgt, imgs)
+        boxes[:n] = out.pop("gt_boxes")
+        classes[:n] = out.pop("gt_classes")
+        mask[:n] = out.pop("gt_mask")
+        results.send((bi, slot, out))

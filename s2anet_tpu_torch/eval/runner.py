@@ -372,7 +372,7 @@ def evaluate_on_chips(step, cfg, dataset: Optional[DotaDataset] = None,
         ranges = step.calibrate(calibration_batches(
             dataset, bs, max(1, int(cfg.model.quant_calib_batches))))
     loader = BatchLoader(dataset, bs, num_workers=cfg.data.workers or None,
-                         rect=rect, rect_stride=cfg.eval.rect_stride)
+                         rect=rect, rect_stride=cfg.eval.rect_stride, mode=cfg.data.loader)
     pipeline = BatchPipeline(step, bs, dataset.img_size, with_batch=with_loss,
                              capacity=loader._img_capacity())
     loader.staging = pipeline

@@ -7,7 +7,23 @@ finishing step also gives the normalise coefficients and updates the
 running statistics) and :func:`bn_apply` (the normalise: one read, one
 write); backward :func:`bn_grad` (one read of the gradient and the
 activation; dgamma, dbeta and the dx coefficients) and :func:`bn_dx`. In
-eval it is the plain affine with the running statistics.
+eval it is the plain affine with the running statistics, in float32, as
+flax's ``use_running_average=True``; gamma and beta still get gradients
+(a frozen stage or ``norm_eval`` puts a layer in eval while it trains:
+``models/resnet.py``).
+
+``stats_images = k > 0`` is the JAX ``SampledBatchNorm``: the statistics
+(and the running statistics' update) come from the first ``min(k, N)``
+images, and the whole batch is normalised with them. On the same four
+passes: :func:`bn_stats` reads only those images' rows (the leading rows
+of the channels-last activation: no copy), :func:`bn_grad` sums over all
+rows and finishes with the count of the statistics' rows, and
+:func:`bn_dx` runs twice, on the statistics' rows with the dx
+coefficients and on the rest with ``a = b = 0`` (there ``dx = mul*g``:
+those rows did not move the statistics). The JAX function normalises a
+bfloat16 input in bfloat16 arithmetic (mean, mul and bias rounded to
+bfloat16 first); here the normalise is float32 inside, rounded once, as
+the full-batch layer.
 
 It mirrors flax's ``nn.BatchNorm``, not torch's:
 
@@ -37,34 +53,45 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class _BatchNormTrain(torch.autograd.Function):
-    """``y`` of the BN layer ``bn`` in training; its batch statistics update
-    the layer's running statistics. The statistics carry no gradient of
-    their own: the backward is the closed form, which accounts for them."""
+    """``y`` of the BN layer ``bn`` in training; the statistics of its first
+    ``k`` images (all of them unless ``bn.stats_images``) update the
+    layer's running statistics. The statistics carry no gradient of their
+    own: the backward is the closed form, which accounts for them."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, bn):
         xl = _nhwc(x)
-        mean, _, rstd, mul = bn_stats(xl, weight, bn.running_mean, bn.running_var,
+        k = x.shape[0] if bn.stats_images <= 0 else max(1, min(bn.stats_images, x.shape[0]))
+        mean, _, rstd, mul = bn_stats(xl[:k], weight, bn.running_mean, bn.running_var,
                                       bn.num_batches_tracked, bn.eps,
                                       1.0 - bn.momentum)  # flax momentum
         ctx.save_for_backward(x)
-        ctx.stats = mean, rstd, mul
+        ctx.stats = mean, rstd, mul, k
         return bn_apply(xl, mean, mul, bias).permute(0, 3, 1, 2)
 
     @staticmethod
     def backward(ctx, gy):
         (x,) = ctx.saved_tensors
-        mean, rstd, mul = ctx.stats
+        mean, rstd, mul, k = ctx.stats
         xl, gl = _nhwc(x), _nhwc(gy)
-        # dx = gamma*rstd * (g - mean(g) - xhat * mean(g*xhat))
-        dgamma, dbeta, a, b = bn_grad(gl, xl, mean, rstd)
-        dx = bn_dx(gl, xl, mean, mul, a, b)
+        # on the statistics' rows dx = gamma*rstd * (g - sum(g)/n
+        # - xhat * sum(g*xhat)/n), n their count; sums over every row
+        n = k * xl.shape[1] * xl.shape[2]
+        dgamma, dbeta, a, b = bn_grad(gl, xl, mean, rstd, n)
+        if k == x.shape[0]:
+            dx = bn_dx(gl, xl, mean, mul, a, b)
+        else:
+            dx = torch.empty_like(xl)
+            bn_dx(gl[:k], xl[:k], mean, mul, a, b, out=dx[:k])
+            zero = torch.zeros_like(a)
+            bn_dx(gl[k:], xl[k:], mean, mul, zero, zero, out=dx[k:])
         return dx.permute(0, 3, 1, 2), dgamma, dbeta, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, stats_images: int = 0):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.stats_images = stats_images  # > 0: sampled statistics (see above)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:

@@ -4,7 +4,12 @@ The inverse of ``s2anet_tpu/models/torch_import.py::convert_reference_s2anet``:
 it maps the JAX ``{"params", "batch_stats"}`` tree (nested dicts of arrays,
 BatchNorms unfolded) to the reference torch key layout that the port's
 modules use, transposing conv kernels HWIO -> OIHW. ``or_weight``
-``[Cout/8, Cin, 1, 3, 3]`` is already in torch layout and is copied as it is.
+``[Cout/8, Cin, 1, 3, 3]`` is already in torch layout and is copied as it is;
+a head built with ``with_orconv=False`` has a plain ``or_conv`` conv
+(kernel and bias) instead, which becomes ``or_conv.weight``/``bias`` the
+same way. (The JAX package's bridge, ``convert_reference_s2anet``, reads a
+4-D ``or_conv.weight`` back into ``or_conv/kernel`` but files its bias
+under ``or_bias``.)
 
 The calibrated int8 activation ranges (the JAX ``"quant"`` collection:
 ``act_min``/``act_max`` per quantised conv, ``or_act_min``/``or_act_max``
@@ -97,8 +102,11 @@ def head_state_dict_from_jax(hp, prefix: str = "") -> Dict[str, torch.Tensor]:
     for name in ("fam_reg_head", "fam_cls_head", "odm_reg_head", "odm_cls_head"):
         conv(name, hp[name])
     sd[prefix + "align_conv.deform_conv.weight"] = _oihw(hp["align_weight"])
-    sd[prefix + "or_conv.weight"] = _t(hp["or_weight"])
-    sd[prefix + "or_conv.bias"] = _t(hp["or_bias"])
+    if "or_conv" in hp:  # with_orconv=False
+        conv("or_conv", hp["or_conv"])
+    else:
+        sd[prefix + "or_conv.weight"] = _t(hp["or_weight"])
+        sd[prefix + "or_conv.bias"] = _t(hp["or_bias"])
     return sd
 
 

@@ -29,14 +29,25 @@ from .resnet import ResNet, stage_channels
 class S2ANet(nn.Module):
     def __init__(self, backbone_name: str = "resnet50", num_classes: int = 15,
                  strides: Sequence[int] = (8, 16, 32, 64, 128),
-                 align_offset_clamp: float = 0.0):
+                 align_offset_clamp: float = 0.0, frozen_stages: int = -1,
+                 norm_eval: bool = False, with_orconv: bool = True,
+                 bn_stats_images: int = 0):
         super().__init__()
-        self.backbone = ResNet(backbone_name)
+        self.backbone = ResNet(backbone_name, frozen_stages, norm_eval, bn_stats_images)
         self.neck = FPN(stage_channels(backbone_name), 256,
                         num_outs=len(strides))
         self.head = S2ANetHead(num_classes=num_classes, feat_channels=256,
                                featmap_strides=strides,
-                               align_offset_clamp=align_offset_clamp)
+                               align_offset_clamp=align_offset_clamp,
+                               with_orconv=with_orconv)
+
+    @classmethod
+    def from_config(cls, mc) -> "S2ANet":
+        """The detector of a ``config.ModelConfig``."""
+        return cls(mc.backbone, mc.num_classes, tuple(mc.strides),
+                   align_offset_clamp=mc.align_offset_clamp,
+                   frozen_stages=mc.frozen_stages, norm_eval=mc.norm_eval,
+                   with_orconv=mc.with_orconv, bn_stats_images=mc.bn_stats_images)
 
     def forward(self, imgs: torch.Tensor):
         return self.head(self.neck(self.backbone(imgs)))
@@ -59,13 +70,14 @@ class S2ANet(nn.Module):
         return self
 
     def cast(self, dtype: torch.dtype) -> "S2ANet":
-        """Compute in ``dtype``, except the four prediction heads, whose
+        """Compute in ``dtype``, except the four prediction heads (and,
+        without the ORConv, the plain ``or_conv`` and the ODM stacks), whose
         parameters stay float32 (flax computes them in float32 when a
         bfloat16 input meets float32 parameters), and the convs set to
         calibrate or run int8, whose float32 weights and ranges the int8
         constants come from (the JAX package quantises its float32
         parameters)."""
-        keep = {id(c) for c in self.head.prediction_heads()}
+        keep = {id(m) for c in self.head.float32_modules() for m in c.modules()}
         keep |= {id(m) for _, m in quant_modules(self) if m.mode != "none"}
         for m in self.modules():
             if id(m) in keep:
@@ -87,7 +99,9 @@ class S2ANet(nn.Module):
         backbone's block and downsample convs (not the stem), the FPN's
         convs, the head's stacks and prediction heads become
         ``QuantConv2d`` in place on first use; the head's convs and its
-        ORConv keep one range per FPN level."""
+        ORConv keep one range per FPN level. Without the ORConv
+        (``with_orconv=False``) the ``orconv`` group is empty: the plain
+        ``or_conv`` always runs float, as in the JAX package."""
         scope = parse_scope(scope)
         if mode not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {mode!r} (expected none | calib | int8)")
@@ -100,7 +114,8 @@ class S2ANet(nn.Module):
         if mode != "none":
             for group in scope:
                 if group == "orconv":
-                    active.append(self.head.or_conv)
+                    if self.head.with_orconv:
+                        active.append(self.head.or_conv)
                     continue
                 fn, slots = sites[group]
                 active += [quantizable(parent, key, slots) for parent, key in list(fn())]

@@ -20,6 +20,16 @@ Numerics pinned to the JAX package:
 Module names follow the reference's torch key layout (``fam_reg_ls.{i}.0``,
 ``align_conv.deform_conv.weight``, ``or_conv.weight``/``bias``, ...).
 
+``with_orconv=False`` (JAX ``S2ANetHead.with_orconv``): ``or_conv`` is a
+plain 3x3 conv with a bias, fc -> fc, and the ODM classification stack
+reads its output directly, without the rotation-invariant pooling (so it
+takes fc input channels, not fc/8). The JAX head builds that conv without
+a dtype, so flax computes it in float32 when a bfloat16 feature meets its
+float32 parameters, and the ODM stacks then compute in float32 too; here
+the same: ``or_conv`` computes in its weight's type and
+:meth:`S2ANetHead.float32_modules` names the three modules a bfloat16
+cast leaves in float32.
+
 int8 serving (``ops/quant.py``, switched by ``S2ANet.set_quant``): the
 stacks (``head_stacks``), the prediction heads (``heads``) and the ORConv
 (``orconv``, its ARF-expanded kernel quantised per output channel) keep
@@ -143,10 +153,11 @@ class S2ANetHead(nn.Module):
 
     def __init__(self, num_classes: int = 15, feat_channels: int = 256,
                  featmap_strides: Sequence[int] = (8, 16, 32, 64, 128),
-                 align_offset_clamp: float = 0.0):
+                 align_offset_clamp: float = 0.0, with_orconv: bool = True):
         super().__init__()
         fc, nc = feat_channels, num_classes
         self.featmap_strides = tuple(featmap_strides)
+        self.with_orconv = with_orconv
         # the input pyramid has feat_channels channels (AlignConv is fc->fc)
         nlv = len(self.featmap_strides)
         self.fam_reg_ls = ConvStack(fc, fc, _STACKED_CONVS)
@@ -155,9 +166,13 @@ class S2ANetHead(nn.Module):
         self.fam_reg_head = Conv2d(fc, 5, 1)
         self.fam_cls_head = Conv2d(fc, nc, 1)
         self.align_conv = AlignConv(fc, align_offset_clamp)
-        self.or_conv = ORConv2d(fc, fc, _N_ORIENT, range_slots=nlv)
+        if with_orconv:
+            self.or_conv = ORConv2d(fc, fc, _N_ORIENT, range_slots=nlv)
+        else:
+            self.or_conv = Conv2d(fc, fc, 3, 1, 1)
         self.odm_reg_ls = ConvStack(fc, fc, _STACKED_CONVS)
-        self.odm_cls_ls = ConvStack(fc // _N_ORIENT, fc, _STACKED_CONVS)
+        self.odm_cls_ls = ConvStack(fc // _N_ORIENT if with_orconv else fc, fc,
+                                    _STACKED_CONVS)
         self.odm_reg_head = Conv2d(fc, 5, 3, 1, 1)
         self.odm_cls_head = Conv2d(fc, nc, 3, 1, 1)
         self._anchors: dict = {}
@@ -165,6 +180,13 @@ class S2ANetHead(nn.Module):
     def prediction_heads(self):
         return (self.fam_reg_head, self.fam_cls_head, self.odm_reg_head,
                 self.odm_cls_head)
+
+    def float32_modules(self):
+        """The modules that keep float32 parameters in a bfloat16 model: the
+        prediction heads, and without the ORConv the plain ``or_conv`` and
+        the ODM stacks it feeds (see the module docstring)."""
+        extra = () if self.with_orconv else (self.or_conv, self.odm_reg_ls, self.odm_cls_ls)
+        return self.prediction_heads() + extra
 
     def stack_sites(self):
         """``(parent, key)`` of the stacks' convs (``head_stacks``)."""
@@ -230,9 +252,13 @@ class S2ANetHead(nn.Module):
                 wh_ratio_clip=1e-6,
             )
             align = self.align_conv(_nhwc(x), refine, stride)  # NHWC
-            or_feat = self.or_conv(_nchw(align), lvl)
-            odm_cls_feat = _nchw(rotation_invariant_pooling(
-                _nhwc(or_feat), _N_ORIENT))
+            if self.with_orconv:
+                or_feat = self.or_conv(_nchw(align), lvl)
+                odm_cls_feat = _nchw(rotation_invariant_pooling(
+                    _nhwc(or_feat), _N_ORIENT))
+            else:
+                or_feat = self.or_conv(_nchw(align).to(self.or_conv.weight.dtype))
+                odm_cls_feat = or_feat
 
             odm_cls = self._head(self.odm_cls_head,
                                  self.odm_cls_ls(odm_cls_feat, lvl), lvl)

@@ -5,9 +5,16 @@ Counterpart of ``s2anet_tpu/models/resnet.py`` (``ResNetBackbone``,
 through a space-to-depth rewrite, a TPU layout trick for the same math; here
 it is the plain conv. Max pool 3/2 pad 1.
 
-In train mode every BatchNorm trains (``models/bn.py``): nothing frozen and
-no ``norm_eval``, the settings of ``configs/dota_r50.yaml``. Convs compute
-in the input's type (``models/conv.py``).
+In train mode a BatchNorm trains (``models/bn.py``) unless its stage is
+frozen or ``norm_eval`` is set, the JAX ``bn_train(stage)`` rule: the
+stem's BatchNorm is stage 0, ``layerN``'s are stage N, and a BatchNorm
+trains only when ``not norm_eval and stage > frozen_stages``; the others
+run on their running statistics, which stay as they are
+(:meth:`ResNet.train`). Their gamma and beta still get gradients; the
+optimizer leaves out those of frozen stages (``train/optim.py``). A
+training BatchNorm takes its statistics from the first ``bn_stats_images``
+images when that is above 0. Convs compute in the input's type
+(``models/conv.py``).
 
 Module names follow the reference's torch key layout, which
 ``s2anet_tpu/models/torch_import.py::convert_reference_s2anet`` reads:
@@ -36,6 +43,12 @@ ARCH_SETTINGS = {
 def _downsample(cin, cout, stride):
     return nn.Sequential(Conv2d(cin, cout, 1, stride, bias=False),
                          BatchNorm2d(cout))
+
+
+def is_frozen_stage(stage: int, frozen_stages: int) -> bool:
+    """Stage 0 is the stem, 1..4 layer1..4: ``frozen_stages >= 0`` freezes
+    the stem and ``layer1..frozen_stages``."""
+    return stage <= frozen_stages
 
 
 class BasicBlock(nn.Module):
@@ -90,8 +103,11 @@ def stage_channels(arch: str):
 class ResNet(nn.Module):
     """Stem + 4 stages; ``forward`` returns (C3, C4, C5)."""
 
-    def __init__(self, arch: str = "resnet50"):
+    def __init__(self, arch: str = "resnet50", frozen_stages: int = -1,
+                 norm_eval: bool = False, bn_stats_images: int = 0):
         super().__init__()
+        self.frozen_stages = frozen_stages
+        self.norm_eval = norm_eval
         kind, layer_cfg = ARCH_SETTINGS[arch]
         block = BasicBlock if kind == "basic" else Bottleneck
         stem = nn.Sequential(Conv2d(3, 64, 7, 2, 3, bias=False),
@@ -111,6 +127,22 @@ class ResNet(nn.Module):
             nn.Sequential(nn.MaxPool2d(3, 2, 1), stages[0]),
             *stages[1:],
         )
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.stats_images = bn_stats_images
+
+    def train(self, mode: bool = True) -> "ResNet":
+        """``nn.Module.train``, then the BatchNorms that do not train (the
+        frozen stages', or all under ``norm_eval``) back to eval: any
+        ``.train()`` of the model keeps the rule. ``backbone[i]`` is stage
+        ``i``."""
+        super().train(mode)
+        for stage, layer in enumerate(self.backbone):
+            if self.norm_eval or is_frozen_stage(stage, self.frozen_stages):
+                for m in layer.modules():
+                    if isinstance(m, nn.BatchNorm2d):
+                        m.eval()
+        return self
 
     def forward(self, x):
         outs = []

@@ -18,6 +18,13 @@ and the BN layer built on them, in the order it runs:
   b = rstd*dgamma/n)``,
 * :func:`bn_dx` ``dx = cast(mul*((g - a) - (x - mean)*b))``.
 
+Sampled statistics (``bn_stats_images``, the JAX ``SampledBatchNorm``) run
+the same four: :func:`bn_stats` on the first images' rows (contiguous in
+channels-last ``[N, H, W, C]``), :func:`bn_apply` on all rows,
+:func:`bn_grad` on all rows with ``n`` the rows the statistics came from,
+and :func:`bn_dx` once on those rows and once, with ``a = b = 0``, on the
+rest, written into one output (``out``).
+
 Each runs its plain version for a CPU tensor and a CUDA kernel of
 ``csrc/bn_moments.cu`` for a CUDA tensor: the sums and their finishing
 step are one launch (``MOMENTS``, ``PAIR``; grid from :func:`sums_plan`),
@@ -38,7 +45,8 @@ from .._ext import F, I, P, Kernel, library
 
 MOMENTS = Kernel("bn_moments", "s2a_channel_moments",
                  [P, P, P, P, I, I, I, I, P, P, P, P, F, F, F, P])
-PAIR = Kernel("bn_moments", "s2a_grad_channel_sums", [P, P, P, P, P, I, I, I, I, P, P, P])
+PAIR = Kernel("bn_moments", "s2a_grad_channel_sums",
+              [P, P, P, P, P, I, I, I, I, P, P, I, P])
 APPLY = Kernel("bn_moments", "s2a_bn_apply", [P, P, P, P, P, I, I, I, P])
 DX = Kernel("bn_moments", "s2a_bn_dx", [P, P, P, P, P, P, P, I, I, I, P])
 
@@ -80,7 +88,7 @@ def stats_from_sums(s, q, n: int, weight, running_mean, running_var, tracked,
 
 def grad_from_sums(sg, sgx, n: int, mean, rstd):
     """The backward's finishing step: ``(dgamma, dbeta, a, b)`` from
-    ``(sum g, sum g*x)`` over ``n`` rows."""
+    ``(sum g, sum g*x)``, for statistics taken over ``n`` rows."""
     dgamma = (sgx - mean * sg) * rstd
     return dgamma, sg, sg / n, rstd * dgamma / n
 
@@ -95,12 +103,13 @@ def bn_apply_plain(x, mean, mul, bias):
     return ((x.float() - mean) * mul + bias).to(x.dtype)
 
 
-def bn_grad_plain(g, x, mean, rstd):
-    return grad_from_sums(*grad_channel_sums_plain(g, x), _rows(x), mean, rstd)
+def bn_grad_plain(g, x, mean, rstd, n=None):
+    return grad_from_sums(*grad_channel_sums_plain(g, x), n or _rows(x), mean, rstd)
 
 
-def bn_dx_plain(g, x, mean, mul, a, b):
-    return (mul * ((g.float() - a) - (x.float() - mean) * b)).to(x.dtype)
+def bn_dx_plain(g, x, mean, mul, a, b, out=None):
+    dx = (mul * ((g.float() - a) - (x.float() - mean) * b)).to(x.dtype)
+    return dx if out is None else out.copy_(dx)
 
 
 # ---------------------------------------------------------------- CUDA
@@ -237,7 +246,7 @@ def grad_channel_sums_cuda(g: torch.Tensor, x: torch.Tensor):
     rows, c = _rows_c("grad_channel_sums_cuda", g, x)
     buf, po, pw, pt, n = _sums_buffer(rows, c, x, 2, True)
     PAIR(g.data_ptr(), x.data_ptr(), po, pw, pt, rows, c, n, _DTYPE_CODE[x.dtype],
-         None, None, _stream(x))
+         None, None, rows, _stream(x))
     return buf[:2].unbind(0)
 
 
@@ -265,20 +274,24 @@ def bn_apply_cuda(x, mean, mul, bias):
     return y
 
 
-def bn_grad_cuda(g, x, mean, rstd):
+def bn_grad_cuda(g, x, mean, rstd, n=None):
     rows, c = _rows_c("bn_grad_cuda", g, x)
     _channel_vectors("bn_grad_cuda", c, x, mean, rstd)
-    buf, po, pw, pt, n = _sums_buffer(rows, c, x, 5, True)
-    PAIR(g.data_ptr(), x.data_ptr(), po, pw, pt, rows, c, n, _DTYPE_CODE[x.dtype],
-         mean.data_ptr(), rstd.data_ptr(), _stream(x))
+    buf, po, pw, pt, chunks = _sums_buffer(rows, c, x, 5, True)
+    PAIR(g.data_ptr(), x.data_ptr(), po, pw, pt, rows, c, chunks, _DTYPE_CODE[x.dtype],
+         mean.data_ptr(), rstd.data_ptr(), n or rows, _stream(x))
     dbeta, _, dgamma, a, b = buf[:5].unbind(0)
     return dgamma, dbeta, a, b
 
 
-def bn_dx_cuda(g, x, mean, mul, a, b):
+def bn_dx_cuda(g, x, mean, mul, a, b, out=None):
     rows, c = _rows_c("bn_dx_cuda", g, x)
     _channel_vectors("bn_dx_cuda", c, x, mean, mul, a, b)
-    dx = torch.empty_like(x)
+    if out is None:
+        dx = torch.empty_like(x)
+    else:
+        _rows_c("bn_dx_cuda", out, x)
+        dx = out
     DX(g.data_ptr(), x.data_ptr(), mean.data_ptr(), mul.data_ptr(), a.data_ptr(),
        b.data_ptr(), dx.data_ptr(), rows, c, _DTYPE_CODE[x.dtype], _stream(x))
     return dx
@@ -318,16 +331,18 @@ def bn_apply(x, mean, mul, bias):
     return bn_apply_cuda(x, mean, mul, bias)
 
 
-def bn_grad(g, x, mean, rstd):
+def bn_grad(g, x, mean, rstd, n=None):
     """``(dgamma, dbeta, a, b)`` float32 [C] of the BN backward for the
-    output gradient ``g`` and the input ``x [..., C]``."""
+    output gradient ``g`` and the input ``x [..., C]``, whose statistics
+    came from ``n`` rows (default: all of them)."""
     if x.device.type == "cpu":
-        return bn_grad_plain(g, x, mean, rstd)
-    return bn_grad_cuda(g, x, mean, rstd)
+        return bn_grad_plain(g, x, mean, rstd, n)
+    return bn_grad_cuda(g, x, mean, rstd, n)
 
 
-def bn_dx(g, x, mean, mul, a, b):
-    """``cast(mul*((g - a) - (x - mean)*b))``, the BN input gradient."""
+def bn_dx(g, x, mean, mul, a, b, out=None):
+    """``cast(mul*((g - a) - (x - mean)*b))``, the BN input gradient,
+    written into ``out`` (``x``'s shape and type) when given."""
     if x.device.type == "cpu":
-        return bn_dx_plain(g, x, mean, mul, a, b)
-    return bn_dx_cuda(g, x, mean, mul, a, b)
+        return bn_dx_plain(g, x, mean, mul, a, b, out)
+    return bn_dx_cuda(g, x, mean, mul, a, b, out)

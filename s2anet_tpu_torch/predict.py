@@ -103,8 +103,7 @@ class S2ANetPredictor:
             raise RuntimeError(f"--device {device}: no CUDA device")
         self.cfg = cfg
         self.dtype = dtype
-        model = S2ANet(cfg.backbone, cfg.num_classes, tuple(cfg.strides),
-                       align_offset_clamp=cfg.align_offset_clamp)
+        model = S2ANet.from_config(cfg)
         if weights:
             model.load_state_dict(load_state_dict(weights, cfg.backbone, use_ema))
         else:

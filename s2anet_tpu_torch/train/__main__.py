@@ -6,7 +6,7 @@ repository's ``train.py``, with its flags (``--config``, ``--data-root``,
 ``--batch-size``, ``--img-size``, ``--lr0``, ``--lr-schedule``,
 ``--dtype``, ``--seed``, ``--save-dir``, ``--resume``, ``--noval``,
 ``--pretrained``, ``--nbs``, ``--noplots``, ``--cache`` ('' or packed),
-``--workers``) and ``--device``.
+``--workers``, ``--loader`` (thread or process)) and ``--device``.
 A flag that is not typed leaves the config file's value
 (:func:`..config.prune_overrides`); a new run's ``--save-dir`` is
 incremented (runs/train/exp -> exp2) unless resuming. It runs
@@ -28,7 +28,9 @@ batches made from ``--seed`` (2-20 gt boxes per image in 64 slots, uniform
 boxes and images, all of class 0; at 1024^2 the same draws as
 train_bench), with random weights from ``--seed``. The optimizer and the
 LR schedule take the ``TrainConfig`` defaults, an epoch being one pass over
-the N batches.
+the N batches. The model options ``--frozen-stages``, ``--norm-eval``,
+``--bn-stats-images`` and ``--no-orconv`` set the ``ModelConfig`` fields of
+those names (a training run reads them from ``--config``).
 
 Prints the four loss items and the wall time of every step, then one JSON
 line: the last losses, ms/step and img/s over the steps after ``--warmup``,
@@ -58,7 +60,7 @@ from ..ops.iou_rotated import BOX_IOU
 from ..ops.moments import APPLY, DX, MOMENTS, PAIR
 from ..ops.nms_rotated import NMS_MASK, NMS_SWEEP
 from .checkpoint import increment_path
-from .optim import Optimizer
+from .optim import Optimizer, freeze_stages
 from .schedule import build_lr_schedule
 from .state import ModelEMA
 from .step import to_device, train_step
@@ -122,7 +124,9 @@ def parse_opt(argv=None):
     p.add_argument("--noplots", action="store_true")
     p.add_argument("--cache", default=None, choices=["", "packed"],
                    help="image source: '' = BGR .npy sidecars, packed = images.pack.bin")
-    p.add_argument("--workers", type=int, default=None, help="loader threads (0 = auto)")
+    p.add_argument("--workers", type=int, default=None, help="loader workers (0 = auto)")
+    p.add_argument("--loader", default=None, choices=["thread", "process"],
+                   help="loader workers: threads, or forked processes")
     p.add_argument("--device", default="cuda")
     # the bench (no --config, no --data-root)
     p.add_argument("--steps", type=int, default=10, help="bench: timed steps")
@@ -133,14 +137,26 @@ def parse_opt(argv=None):
     p.add_argument("--synthetic", type=int, default=None,
                    help="bench: distinct synthetic batches, used in turn (default 4)")
     p.add_argument("--save", default="", help="bench: write the EMA state_dict here")
+    p.add_argument("--frozen-stages", type=int, default=None,
+                   help="bench: model.frozen_stages (-1 = none frozen)")
+    p.add_argument("--norm-eval", action="store_true", default=None,
+                   help="bench: model.norm_eval (every BatchNorm on its running statistics)")
+    p.add_argument("--bn-stats-images", type=int, default=None,
+                   help="bench: model.bn_stats_images (BN statistics from the first k images)")
+    p.add_argument("--no-orconv", action="store_true", default=None,
+                   help="bench: model.with_orconv false (a plain or_conv)")
     opt = p.parse_args(argv)
     opt.bench = not (opt.config or opt.data_root)
     if opt.bench:
         for k, v in BENCH_DEFAULTS.items():
             if getattr(opt, k) is None:
                 setattr(opt, k, v)
-    elif opt.synthetic is not None:
-        p.error("--synthetic is the bench: give it without --config and --data-root")
+    else:
+        for flag in ("synthetic", "frozen_stages", "norm_eval", "bn_stats_images",
+                     "no_orconv"):
+            if getattr(opt, flag) is not None:
+                p.error(f"--{flag.replace('_', '-')} is the bench's: give it without "
+                        "--config and --data-root (a training run reads the config)")
     return opt
 
 
@@ -150,7 +166,7 @@ def make_config(opt):
         "model": {"backbone": opt.backbone, "num_classes": opt.num_classes},
         "data": {"root": opt.data_root or None, "train_list": opt.data_root or None,
                  "val_list": opt.val_root or None, "img_size": opt.img_size,
-                 "cache": opt.cache, "workers": opt.workers},
+                 "cache": opt.cache, "workers": opt.workers, "loader": opt.loader},
         "train": {"epochs": opt.epochs, "batch_size": opt.batch_size, "lr0": opt.lr0,
                   "lr_schedule": opt.lr_schedule, "dtype": opt.dtype, "seed": opt.seed,
                   "save_dir": opt.save_dir,
@@ -198,12 +214,16 @@ def setup(opt):
     device = torch.device(opt.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {opt.device}: no CUDA device")
-    cfg = ModelConfig(backbone=opt.backbone, align_offset_clamp=opt.clamp)
+    options = {"frozen_stages": opt.frozen_stages, "norm_eval": opt.norm_eval,
+               "bn_stats_images": opt.bn_stats_images,
+               "with_orconv": False if opt.no_orconv else None}
+    cfg = ModelConfig(backbone=opt.backbone, align_offset_clamp=opt.clamp,
+                      **{k: v for k, v in options.items() if v is not None})
     tc = TrainConfig()
-    model = S2ANet(cfg.backbone, cfg.num_classes, tuple(cfg.strides),
-                   align_offset_clamp=cfg.align_offset_clamp)
+    model = S2ANet.from_config(cfg)
     model.init_weights(torch.Generator().manual_seed(opt.seed))
     model = model.to(device).channels_last().train()
+    freeze_stages(model, cfg.frozen_stages)
     n_batches = max(opt.synthetic, 1)
     lr_fn = build_lr_schedule(
         tc.lr0, tc.epochs * n_batches, n_batches, tc.lr_schedule,

@@ -36,15 +36,17 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..models.resnet import is_frozen_stage
+
 
 def is_frozen(name: str, frozen_stages: int) -> bool:
     """The JAX ``freeze_mask`` rule on the port's parameter names: with
     ``frozen_stages >= 0`` the stem (``backbone.backbone.0``) and
     ``layer1..frozen_stages`` (``backbone.backbone.1..``) are frozen."""
     parts = name.split(".")
-    if frozen_stages < 0 or parts[:2] != ["backbone", "backbone"]:
+    if parts[:2] != ["backbone", "backbone"]:
         return False
-    return int(parts[2]) <= frozen_stages
+    return is_frozen_stage(int(parts[2]), frozen_stages)
 
 
 def freeze_stages(model: nn.Module, frozen_stages: int) -> int:

@@ -14,18 +14,24 @@ checkpoint at epoch ``micro_steps // steps_per_epoch``; the loader is
 seeded per epoch, so the resumed epochs see the batches of an uninterrupted
 run.
 
-**Host and device.** The loader's threads stack each batch, as uint8 RGB,
-into the pinned ring of :class:`..eval.runner.BatchPipeline`; the ring's
+**Model options.** ``frozen_stages`` and ``norm_eval`` put BatchNorms in
+inference mode while training (``models/resnet.py``; the optimizer leaves
+out the frozen stages' parameters, :func:`.optim.freeze_stages`),
+``bn_stats_images`` samples the training BatchNorms' statistics
+(``models/bn.py``), ``with_orconv: false`` gives the head a plain
+``or_conv`` (``models/head.py``).
+
+**Host and device.** The loader (``data.loader``: threads, or forked
+worker processes that touch no CUDA, ``data/dota.py``) stacks each batch,
+as uint8 RGB, into the pinned ring of :class:`..eval.runner.BatchPipeline`; the ring's
 side stream copies it to the card while the step before it runs, and the
 step scales it there (:func:`.step.to_device`). The loss items stay on the
 device until the epoch ends: nothing in the loop waits for the device per
 step. Every kernel launch, validation's included, is on the one compute
 stream (the BN sums kernels allow one launch per device at a time).
 
-Not ported: the plots (they need matplotlib), multi-process training
-(``is_main`` is always true), ``norm_eval``, process-mode loading, mosaic
-and the affine warp; a configuration that asks for one of the last four
-raises.
+Not ported: the plots (they need matplotlib) and multi-process training
+(``is_main`` is always true).
 """
 
 from __future__ import annotations
@@ -38,7 +44,6 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.augment import not_ported
 from ..data.dota import BatchLoader, DotaDataset
 from ..eval.runner import BatchPipeline, evaluate_on_chips
 from ..models.detector import S2ANet
@@ -95,12 +100,6 @@ class Trainer:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"--device {device}: no CUDA device")
-        if cfg.model.norm_eval:
-            raise NotImplementedError("model.norm_eval is not ported (ROADMAP.md Queue 1)")
-        if cfg.data.loader != "thread":
-            raise NotImplementedError(f"data.loader {cfg.data.loader!r}: only 'thread' is "
-                                      f"ported (ROADMAP.md Queue 1)")
-        not_ported(cfg.data.mosaic, cfg.data.translate, cfg.data.scale)
         self.cfg = cfg
         self.callbacks = callbacks or Callbacks()
         self.is_main = True  # one process (multi-GPU: ROADMAP.md Queue 1)
@@ -112,9 +111,7 @@ class Trainer:
                                wandb_project=cfg.train.wandb_project,
                                wandb_entity=cfg.train.wandb_entity,
                                run_config=cfg.to_dict())
-        mc = cfg.model
-        self.model = S2ANet(mc.backbone, mc.num_classes, tuple(mc.strides),
-                            align_offset_clamp=mc.align_offset_clamp)
+        self.model = S2ANet.from_config(cfg.model)
         # seconds of the last train(): the host waiting for the loader, and
         # the epochs' loops to the device's end (validation apart)
         self.timing = {"loader_wait": 0.0, "loop": 0.0, "steps": 0}
@@ -156,9 +153,11 @@ class Trainer:
         ds = DotaDataset(d.train_list or d.root, img_size=d.img_size, max_gt=d.max_gt,
                          cache_images=d.cache, augment=True, fliplr=d.fliplr,
                          flipud=d.flipud, rot90=d.degrees > 0,
-                         hsv=(d.hsv_h, d.hsv_s, d.hsv_v), mixup=d.mixup)
+                         hsv=(d.hsv_h, d.hsv_s, d.hsv_v), mixup=d.mixup, mosaic=d.mosaic,
+                         translate=d.translate, scale=d.scale)
         return BatchLoader(ds, self.cfg.train.batch_size, num_workers=d.workers or None,
-                           shuffle=True, seed=self.cfg.train.seed, drop_last=True)
+                           shuffle=True, seed=self.cfg.train.seed, drop_last=True,
+                           mode=d.loader)
 
     def train(self, resume: Optional[str] = None, weights: Optional[dict] = None):
         cfg = self.cfg

@@ -3,8 +3,9 @@ inputs: the flips, the 90-degree rotations (k = 0-3, non-square images),
 the centre filter and mixup exactly; the HSV jitter bit for bit against
 the cv2 version, and the colour conversions under it against cv2 on every
 8-bit input (one pixel per row, and rows long enough for cv2's vector
-loop); the trainer refuses mosaic, the affine warp and process-mode
-loading."""
+loop); the trainer takes mosaic, the affine warp and process-mode loading
+(once refused) into its train loader (their outputs against JAX and cv2:
+tests/test_torch_port_mosaic.py)."""
 
 import cv2
 import numpy as np
@@ -77,8 +78,14 @@ def test_color_conversions_equal_cv2_everywhere():
 @pytest.mark.parametrize("data", [{"mosaic": 0.5}, {"translate": 0.1}, {"scale": 0.5},
                                   {"loader": "process"}])
 def test_unported_training_settings_are_refused(data, tmp_path):
-    cfg = config.load_config(None, {"data": data,
+    """These settings were refused before they were ported; now the
+    trainer builds and its train loader carries them."""
+    (tmp_path / "images").mkdir()
+    cfg = config.load_config(None, {"data": dict(data, root=str(tmp_path / "images")),
                                     "train": {"save_dir": str(tmp_path / "run")}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, device="cpu")
-    assert not (tmp_path / "run").exists()
+    loader = Trainer(cfg, device="cpu")._train_loader()
+    assert (tmp_path / "run" / "config.yaml").exists()
+    got = {"mosaic": loader.ds.mosaic, "translate": loader.ds.translate,
+           "scale": loader.ds.scale, "loader": loader.mode}
+    want = {"mosaic": 0.0, "translate": 0.0, "scale": 0.0, "loader": "thread"}
+    assert got == dict(want, **data)

@@ -2,8 +2,9 @@
 each ``configs/*.yaml``, with and without overrides and names presets,
 equals JAX's field by field; the YAML reader equals ``yaml.safe_load`` on
 those files; the saved ``config.yaml`` reads back to the same dict through
-both readers; a JAX-only setting the port does not run is refused
-(``eval.rect`` is ported and loads)."""
+both readers; the model options once refused (``with_orconv: false``,
+``bn_stats_images``) load as the JAX package loads them, and the JAX-only
+implementation switches are ignored."""
 
 import dataclasses
 from pathlib import Path
@@ -79,13 +80,20 @@ def test_prune_overrides_matches_jax():
 
 @pytest.mark.parametrize("over", [{"model": {"with_orconv": False}},
                                   {"model": {"bn_stats_images": 2}},
-                                  # rect is ported: the refusal beside it stays
+                                  # beside a setting ported earlier
                                   {"model": {"bn_stats_images": 2}, "eval": {"rect": True}}])
 def test_unported_settings_raise(over, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        config.load_config(None, over)
+    """Refused before they were ported; now loaded, from overrides and from
+    a file, as the JAX package loads them, and round-tripped through the
+    saved config.yaml."""
+    got = config.load_config(None, over)
+    _assert_same(got, jax_config.load_config(None, over))
+    for section, fields in over.items():
+        for name, value in fields.items():
+            assert getattr(getattr(got, section), name) == value
     (tmp_path / "c.yaml").write_text(yaml.safe_dump(over))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config.load_config(tmp_path / "c.yaml")
+    _assert_same(config.load_config(tmp_path / "c.yaml"), got)
+    got.save(tmp_path / "saved.yaml")
+    _assert_same(config.load_config(tmp_path / "saved.yaml"), got)
     # implementation switches of the JAX package are ignored
     assert config.load_config(None, {"model": {"deform_impl": "gather"}}) == config.Config()

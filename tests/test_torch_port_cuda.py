@@ -534,6 +534,81 @@ def test_bn_train_runs_the_kernels(dev, gen):
         assert (a - b).abs().max().item() / max(b.abs().max().item(), 1.0) < 1e-5
 
 
+SAMPLED_CASES = [((8, 64, 64, 64), 2), ((8, 32, 32, 2048), 2), ((3, 5, 7, 24), 1),
+                 ((4, 16, 16, 256), 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", SAMPLED_CASES)
+def test_sampled_bn_kernels_match_plain(dev, gen, shape, k, dtype):
+    """Sampled statistics (``bn_stats_images = k``) on the kernels: the
+    statistics of the first k images (their rows, no copy), the backward's
+    sums over every row finished with the count of the statistics' rows,
+    within 1e-6 of the plain finishing on the kernel's own sums; dx on the
+    two row ranges into one output equal to the plain version bit for bit."""
+    x, g, weight, bias, (rm, rv) = _bn_case(gen, dev, shape, dtype)
+    c = shape[-1]
+    nk = k * shape[1] * shape[2]
+    rm_p, rv_p = rm.clone(), rv.clone()
+    tracked, tracked_p = (torch.tensor(0, device=dev) for _ in range(2))
+    n_m, n_p = mo.MOMENTS.launches, mo.PAIR.launches
+    stats = mo.bn_stats(x[:k], weight, rm, rv, tracked, 1e-5, 0.9)
+    mean, _, rstd, mul = stats
+    grad = mo.bn_grad(g, x, mean, rstd, nk)
+    sums = mo.channel_moments_cuda(x[:k]) + mo.grad_channel_sums_cuda(g, x)
+    torch.cuda.synchronize()
+    assert (mo.MOMENTS.launches, mo.PAIR.launches) == (n_m + 2, n_p + 2)
+    ref = mo.stats_from_sums(sums[0], sums[1], nk, weight, rm_p, rv_p, tracked_p, 1e-5, 0.9)
+    ref_g = mo.grad_from_sums(sums[2], sums[3], nk, mean, rstd)
+    for a, b in zip(stats + (rm, rv) + grad, ref + (rm_p, rv_p) + ref_g):
+        assert a.shape == (c,) and _rel_to_max(a, b) <= 1e-6
+    _, _, a, b = grad
+    zero = torch.zeros_like(a)
+    n_a, n_d = mo.APPLY.launches, mo.DX.launches
+    y = mo.bn_apply(x, mean, mul, bias)
+    dx = torch.empty_like(x)
+    mo.bn_dx(g[:k], x[:k], mean, mul, a, b, out=dx[:k])
+    mo.bn_dx(g[k:], x[k:], mean, mul, zero, zero, out=dx[k:])
+    torch.cuda.synchronize()
+    assert (mo.APPLY.launches, mo.DX.launches) == (n_a + 1, n_d + 2)
+    assert torch.equal(y, mo.bn_apply_plain(x, mean, mul, bias))
+    want = torch.cat([mo.bn_dx_plain(g[:k], x[:k], mean, mul, a, b),
+                      mo.bn_dx_plain(g[k:], x[k:], mean, mul, zero, zero)])
+    assert torch.equal(dx, want)
+
+
+def test_sampled_bn_train_runs_the_kernels(dev, gen):
+    """``BatchNorm2d(stats_images=2)`` on 6 images through the kernels
+    against the same module on the plain versions: one stats, apply and
+    pair launch, two dx launches; outputs, gradients and running
+    statistics within 1e-5."""
+    from unittest import mock
+
+    from s2anet_tpu_torch.models import bn as bn_mod
+
+    x = torch.randn(6, 64, 16, 16, generator=gen, device=dev) + 0.5
+    x = x.contiguous(memory_format=torch.channels_last)
+    kernels = (mo.MOMENTS, mo.APPLY, mo.PAIR, mo.DX)
+    runs = []
+    for plain in (False, True):
+        bn = bn_mod.BatchNorm2d(64, stats_images=2).to(dev).train()
+        xx = x.clone().requires_grad_(True)
+        before = [k.launches for k in kernels]
+        with contextlib.ExitStack() as stack:
+            for name in ("bn_stats", "bn_apply", "bn_grad", "bn_dx"):
+                fn = getattr(mo, name + "_plain") if plain else getattr(mo, name)
+                stack.enter_context(mock.patch.object(bn_mod, name, fn))
+            y = bn(xx)
+            torch.sin(y).sum().backward()
+        torch.cuda.synchronize()
+        assert [k.launches - n for k, n in zip(kernels, before)] == (
+            [0] * 4 if plain else [1, 1, 1, 2])
+        runs.append((y.detach(), xx.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+                     bn.running_var))
+    for a, b in zip(*runs):
+        assert (a - b).abs().max().item() / max(b.abs().max().item(), 1.0) < 1e-5
+
+
 def test_kernel_wrappers_reject_cpu_and_non_channels_last(dev):
     from s2anet_tpu_torch.models.bn import BatchNorm2d
 
@@ -573,22 +648,31 @@ def test_kernel_wrappers_reject_cpu_and_non_channels_last(dev):
         BatchNorm2d(64).to(dev).train()(x).backward(nchw)
 
 
-def test_small_train_step_kernel_path(dev):
-    """R-18 at 128^2, batch 2, bf16: one step launches every training
-    kernel as often as the model has layers."""
+@pytest.mark.parametrize("flags,bn", [
+    ([], (20, 20, 20, 20)),
+    (["--frozen-stages", "1"], (15, 15, 15, 15)),   # stem and layer1's 5 BNs frozen
+    (["--norm-eval"], (0, 0, 0, 0)),
+    (["--bn-stats-images", "1"], (20, 20, 20, 40)),  # dx on the two row ranges
+    (["--no-orconv"], (20, 20, 20, 20)),
+])
+def test_small_train_step_kernel_path(dev, flags, bn):
+    """R-18 at 128^2, batch 2, bf16, one step, with each model option: the
+    BN kernels (moments, pair, apply, dx) launch once a training layer (dx
+    twice under sampled statistics), AlignConv 5 and 5, the IoU once a
+    stage, no NMS."""
     from s2anet_tpu_torch.train.__main__ import KERNELS, main
 
     before = {k.symbol: k.launches for k in KERNELS}
     summary = main(["--backbone", "resnet18", "--img-size", "128", "--batch-size", "2",
-                    "--steps", "1", "--warmup", "0", "--synthetic", "1"])
+                    "--steps", "1", "--warmup", "0", "--synthetic", "1"] + flags)
     assert np.isfinite(summary["losses"]).all()
     per_step = {k.symbol: k.launches - before[k.symbol] for k in KERNELS}
     assert per_step == {
         "s2a_deform_conv2d_fwd": 5, "s2a_deform_conv2d_bwd": 5,
         "s2a_box_iou_rotated": 2,  # FAM and ODM assignment, one launch each
         "s2a_nms_rotated_mask": 0, "s2a_nms_rotated_sweep": 0,
-        "s2a_channel_moments": 20, "s2a_grad_channel_sums": 20,
-        "s2a_bn_apply": 20, "s2a_bn_dx": 20}
+        **dict(zip(("s2a_channel_moments", "s2a_grad_channel_sums", "s2a_bn_apply",
+                    "s2a_bn_dx"), bn))}
 
 
 # ---------------------------------------------------------------- int8 serving
