@@ -209,13 +209,47 @@ last line:
                during the steps; then the augmented loader alone over the
                chips listed 4 times, process and thread mode in turns
                (images/s)
+ 16. data parallel  the BN kernels' data-parallel mode at the 53 R-50 BN
+               shapes, bf16 and float32: the sums alone, then
+               s2a_bn_finish_stats / s2a_bn_finish_grad, equal to the
+               one-launch sums and finishing bit for bit; the finishing
+               within 1e-5 of the plain finishing on the same sums; zero
+               rows give zero sums; the finishing over a step's 53 layers
+               timed (device time, profiler; CUDA events over the loop show
+               the host's enqueue) against the plain finishing, its bound
+               and SyncBatchNorm's gather (a yardstick). a: two ranks
+               spawned (spawn start method) on the one card over gloo, R-50
+               1024^2, global batch 8 (4 a rank), from the seeded state: 2
+               float32 train steps (TF32 off, deterministic cuDNN), each
+               held against one process at batch 8 from the state rank 0
+               had before it, on the ranks' assignment codes: every BN
+               layer's forward mean and var (per channel, the mean over its
+               standard deviation, the var over itself) within 1e-5 of the
+               statistics of the ranks' own inputs (float64 sums, apart from
+               the kernels) and within 1e-4 of one process's (whose inputs
+               drift with the layers before), the FAM positives over the
+               global batch exact and the ODM ones within the codes that
+               differ (printed), the gradient summed over the ranks within
+               1e-3 of one process's (relative to its norm), loss items
+               within 1e-4; then bf16 ms/step of the two ranks against one
+               process at batch 8, and each kernel's launches a step on
+               rank 0 (finishing 53 + 53). b: torchrun
+               --standalone --nproc_per_node 2 -m s2anet_tpu_torch.train
+               --config configs/dota_r50.yaml on 16 train and 8 val synthetic
+               chips, one epoch: one summary from rank 0, rank-0 validation,
+               one results.csv row, weights/last, best, deploy with keys
+               without 'module.'; that weights/last resumed by one process
+               for epoch 1; val on the deploy weights. c: with 2 or more
+               cards, a over NCCL, one card a rank, with ms/step against
+               one card; skipped (and said so) on one card
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path (training, or serving for the NMS kernels, ``val --quant int8``
 for the int8 kernels; ``eval_launches``: the val run of phase 11 for the
 kernels on that path; ``rect_launches``: the ``val --rect`` run of phase 14,
 ``val --rect --quant int8`` for the int8 kernels; ``option_launches``: a
-train step of each configuration of phase 15), its largest error
+train step of each configuration of phase 15; ``dp_launches``: a step of
+phase 16a on rank 0, which is the finishing kernels' path), its largest error
 against the plain version, its time, the plain version's and the library
 call's time where there is one, and the least time the card could take
 (``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
@@ -871,8 +905,9 @@ def phase_train(torch, dev, card, out_dir):
     check(per["s2a_deform_conv2d_fwd"] == 5 and per["s2a_deform_conv2d_bwd"] == 5
           and per["s2a_channel_moments"] == 53 and per["s2a_grad_channel_sums"] == 53
           and per["s2a_bn_apply"] == 53 and per["s2a_bn_dx"] == 53
-          and per["s2a_box_iou_rotated"] == 2 and per["s2a_nms_rotated_mask"] == 0,
-          f"launches per step {per}")
+          and per["s2a_box_iou_rotated"] == 2 and per["s2a_nms_rotated_mask"] == 0
+          and per["s2a_bn_finish_stats"] == 0 and per["s2a_bn_finish_grad"] == 0,
+          f"launches per step {per} (one process: no finishing kernel, no collective)")
 
     cfg, model, optimizer, ema, batches = train_cli.setup(train_cli.parse_opt(args))
     for i in range(2):
@@ -1845,7 +1880,8 @@ def phase_train_loop(torch, out_dir, step_ms):
                             "s2a_deform_conv2d_bwd": 0, "s2a_box_iou_rotated": 2 * val_batches,
                             "s2a_nms_rotated_mask": val_batches,
                             "s2a_nms_rotated_sweep": val_batches, "s2a_channel_moments": 0,
-                            "s2a_grad_channel_sums": 0, "s2a_bn_apply": 0, "s2a_bn_dx": 0},
+                            "s2a_grad_channel_sums": 0, "s2a_bn_apply": 0, "s2a_bn_dx": 0,
+                            "s2a_bn_finish_stats": 0, "s2a_bn_finish_grad": 0},
           f"validation launches over {val_batches} batches {counts['val']}")
     epoch_ms = [1000 * float(r["time/epoch_s"]) / (steps // 2) for r in rows]
     say(f"   {wall:.1f} s in all; epoch loop {summary['ms_per_step']:.2f} ms/step over both "
@@ -2626,6 +2662,514 @@ def phase_options(torch, dev, out_dir):
     return per_step, ms, worst, dev_ms
 
 
+# phase 16: data-parallel training
+DP_WORLD = 2
+DP_STEPS = 2  # float32 steps held against one process
+DP_WARMUP, DP_TIMED = 2, 5  # bf16 steps of the timing, before and timed
+DP_TRAIN, DP_VAL = 16, 8  # 16b: synthetic chips (phase 12's generator and seed)
+DP_BASE = ["--backbone", "resnet50", "--img-size", str(SIZE), "--batch-size", str(BATCH),
+           "--clamp", "6.0", "--synthetic", "1", "--seed", str(SEED)]
+
+
+def dp_patches(mods, log):
+    """Patches that log each BN layer's forward mean and var (from the
+    finishing step, ``fn`` of ``models.bn``) and each assignment's codes;
+    ``codes``, when given, replace the assignment's own (logged beside).
+    On a rank (``fn`` the finishing kernel's) each layer's input sums in
+    float64 are logged too, computed apart from the kernels."""
+    import torch
+
+    bn_mod, head_mod, fn, codes = mods
+    finish, assign, sums = getattr(bn_mod, fn), head_mod.assign_labels, bn_mod.moment_sums
+
+    def finish_logged(*args, **kw):
+        out = finish(*args, **kw)
+        log["stats"].append((out[0].detach().cpu(), out[1].detach().cpu()))
+        return out
+
+    def assign_logged(*args, **kw):
+        own = assign(*args, **kw)
+        log["codes"].append(own.cpu())
+        return own if codes is None else codes[len(log["codes"]) - 1].to(own.device)
+
+    def sums_logged(x):
+        xd = x.double().reshape(-1, x.shape[-1])
+        log["sums64"].append((torch.stack([xd.sum(0), (xd * xd).sum(0)]).cpu(), xd.shape[0]))
+        return sums(x)
+    patches = (mock.patch.object(bn_mod, fn, finish_logged),
+               mock.patch.object(head_mod, "assign_labels", assign_logged))
+    if fn == "bn_finish_stats":
+        patches += (mock.patch.object(bn_mod, "moment_sums", sums_logged),)
+    return patches
+
+
+def dp_rank(rank, store, work, device="cuda", base=None):
+    """One rank of phase 16a/c, started with the spawn start method: R-50
+    1024^2, this rank's 4 of the global batch of 8. DP_STEPS float32 train
+    steps (TF32 off, deterministic cuDNN), each logging its BN statistics,
+    assignment codes and the gradient summed over the ranks (rank 0 also
+    the state before the step), then bf16 steps timed on rank 0 with the
+    kernels' launches. ``device`` and ``base`` (the bench's flags) are the
+    card and DP_BASE but in a rehearsal on the CPU."""
+    import torch
+
+    from s2anet_tpu_torch.models import bn as bn_mod
+    from s2anet_tpu_torch.models import head as head_mod
+    from s2anet_tpu_torch.parallel import mesh
+    from s2anet_tpu_torch.train import __main__ as train_cli
+    from s2anet_tpu_torch.train.step import train_step
+
+    work, base = Path(work), base or DP_BASE
+    dev = mesh.init_group(device, f"file://{store}", rank, DP_WORLD)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    cfg, model, optimizer, ema, batches = train_cli.setup(train_cli.parse_opt(
+        base + ["--dtype", "float32", "--device", str(dev)]))
+    step = optimizer.step
+    for s in range(DP_STEPS):
+        log = {"stats": [], "codes": [], "sums64": []}
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                       work / f"state{s}.pt")
+
+        def logged_step():  # the gradient summed over the ranks, then the update
+            log["grad"] = torch.cat([p.grad.reshape(-1) for p in optimizer.params]).cpu()
+            step()
+        optimizer.step = logged_step
+        with contextlib.ExitStack() as stack:
+            for patch in dp_patches((bn_mod, head_mod, "bn_finish_stats", None), log):
+                stack.enter_context(patch)
+            log["items"] = train_step(model, optimizer, ema, batches[0], cfg).cpu()
+        torch.save(log if rank == 0 else {k: log[k] for k in ("codes", "sums64")},
+                   work / f"step{s}.{rank}.pt")
+    del model, optimizer, ema, batches
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = True
+    cfg, model, optimizer, ema, batches = train_cli.setup(train_cli.parse_opt(
+        base + ["--dtype", "bfloat16", "--device", str(dev)]))
+    for _ in range(DP_WARMUP):
+        train_step(model, optimizer, ema, batches[0], cfg).tolist()
+    for k in train_cli.KERNELS:
+        k.launches = 0
+    walls = []
+    for _ in range(DP_TIMED):
+        t0 = time.perf_counter()
+        train_step(model, optimizer, ema, batches[0], cfg).tolist()  # waits for the step
+        walls.append(1000 * (time.perf_counter() - t0))
+    launches = {k.symbol: k.launches / DP_TIMED for k in train_cli.KERNELS}
+    (work / f"timing.{rank}.json").write_text(json.dumps({
+        "walls": walls, "launches": launches, "backend": mesh.dist.get_backend()}))
+    mesh.shutdown()
+
+
+def dp_world(torch, work, share: bool, device="cuda", base=None):
+    """Spawn the DP_WORLD ranks of ``dp_rank`` (``share``: all on the first
+    card, over gloo; else one card each) and wait for them, 600 s at most."""
+    import multiprocessing
+    import os
+
+    work.mkdir(parents=True, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")  # CUDA is up here: no fork
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if share:
+        os.environ["CUDA_VISIBLE_DEVICES"] = (saved or "0").split(",")[0]
+    store = str((work / "store").resolve())  # a file:// URL takes an absolute path
+    procs = [ctx.Process(target=dp_rank, args=(r, store, str(work), device, base))
+             for r in range(DP_WORLD)]
+    for pr in procs:
+        pr.start()
+    if share:
+        if saved is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+    deadline = time.perf_counter() + 600
+    for pr in procs:
+        pr.join(max(0.0, deadline - time.perf_counter()))
+    hung = [pr for pr in procs if pr.is_alive()]
+    for pr in hung:
+        pr.kill()
+        pr.join()
+    check(not hung and all(pr.exitcode == 0 for pr in procs),
+          f"{DP_WORLD} ranks ran and exited 0 (exit codes {[pr.exitcode for pr in procs]}"
+          f"{', killed after 600 s' if hung else ''})")
+
+
+def dp_compare(torch, dev, work, label: str, base=None, layers: int = 53):
+    """The ranks' float32 steps against one process at batch 8 from the same
+    state, on the ranks' assignment; then bf16 ms/step of one process beside
+    the ranks'. Returns the ranks' launches a step and ms/step. ``base``
+    and ``layers`` (the BN layers) are DP_BASE's and R-50's but in a
+    rehearsal on the CPU."""
+    from s2anet_tpu_torch.models import bn as bn_mod
+    from s2anet_tpu_torch.models import head as head_mod
+    from s2anet_tpu_torch.models.head import compute_s2anet_loss
+    from s2anet_tpu_torch.train import __main__ as train_cli
+    from s2anet_tpu_torch.train.step import train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    base = base or DP_BASE
+    cfg, model, optimizer, _, batches = train_cli.setup(train_cli.parse_opt(
+        base + ["--dtype", "float32"]))
+    batch = batches[0]
+
+    def one_process(state, codes, log, scale=1.0):
+        """Forward from ``state`` (the input times ``scale``), the loss on
+        the ``codes``, backward: ``(loss items, the gradient, flat)``."""
+        model.load_state_dict(state)
+        with contextlib.ExitStack() as stack:
+            for patch in dp_patches((bn_mod, head_mod, "bn_stats", codes), log):
+                stack.enter_context(patch)
+            total, items = compute_s2anet_loss(
+                model(batch["imgs"] * scale), batch["gt_boxes"], batch["gt_classes"],
+                batch["gt_mask"], imgs_size=(SIZE, SIZE), num_classes=cfg.num_classes,
+                fl_gamma=cfg.fl_gamma, fl_alpha=cfg.fl_alpha, smooth_beta=cfg.smooth_beta,
+                odm_balance=cfg.odm_balance, reg_balance=cfg.reg_balance,
+                fpn_balance=tuple(cfg.fpn_balance))
+        optimizer.zero_grad()
+        total.backward()
+        return items.detach(), torch.cat([p.grad.reshape(-1) for p in optimizer.params]).cpu()
+
+    for s in range(DP_STEPS):
+        ranks = [torch.load(work / f"step{s}.{r}.pt", weights_only=False)
+                 for r in range(DP_WORLD)]
+        state = torch.load(work / f"state{s}.pt", weights_only=True)
+        # the ranks' codes, image-concatenated: FAM then ODM
+        codes = [torch.cat([r["codes"][i] for r in ranks]) for i in range(2)]
+        log = {"stats": [], "codes": []}
+        items, grad = one_process(state, codes, log)
+        # the floor: one process against itself with its input scaled by
+        # 1 + 1e-6. From a random initialisation the step is ill-conditioned
+        # (train-mode BN, ReLU and max-pool flips): at R-50 256^2 on the CPU
+        # that alone moved the gradient 3.2e-2 of its norm, each tensor up
+        # to 4%, as much as two ranks against one process did (2.8e-2)
+        _, grad2 = one_process(state, codes, {"stats": [], "codes": []}, 1 + 1e-6)
+        floor = ((grad2 - grad).norm() / grad.norm()).item()
+        dp = ranks[0]
+
+        def stats_err(got, want):
+            """Per channel, on the scale of the sums the statistics come
+            from: the mean's error over the root mean square sqrt(E[x^2]),
+            the variance's over E[x^2] (var = E[x^2] - mean^2 in float32
+            loses what the sums' rounding leaves of E[x^2]); the largest
+            over the layers, and the worst layer."""
+            e = []
+            for a, b in zip(got, want):
+                ms = b[1] + b[0] * b[0] + 1e-5  # E[x^2]
+                e.append(max(((a[0] - b[0]).abs() / ms.sqrt()).max().item(),
+                             ((a[1] - b[1]).abs() / ms).max().item()))
+            return max(e), max(range(len(e)), key=e.__getitem__)
+
+        # each layer: the ranks' statistics against those of the ranks' own
+        # inputs (their float64 sums, added), and against one process's,
+        # whose inputs drift from the ranks' by the rounding of every
+        # layer before (other convolution algorithms at batch 4 and 8)
+        own = []
+        for layer in zip(*(r["sums64"] for r in ranks)):
+            tot, m = sum(t for t, _ in layer), sum(m for _, m in layer)
+            mean = tot[0] / m
+            own.append((mean.float(), (tot[1] / m - mean * mean).float()))
+        e_own, l_own = stats_err(dp["stats"], own)
+        e_one, l_one = stats_err(dp["stats"], log["stats"])
+        check(len(dp["stats"]) == len(log["stats"]) == layers and e_own <= 1e-5
+              and e_one <= 1e-4,
+              f"{label} float32 step {s}: the {layers} BN layers' forward mean and var (per "
+              f"channel: the mean over sqrt(E[x^2]), the var over E[x^2]) within "
+              f"{e_own:.3g} of the statistics of the ranks' own inputs in float64 (bar 1e-5; "
+              f"layer {l_own}), within {e_one:.3g} of one process's at batch {BATCH} (bar 1e-4; "
+              f"layer {l_one}: the inputs drift with the layers before)")
+        own = log["codes"]  # one process's own codes
+        differ = [int((a != b).sum()) for a, b in zip(codes, own)]
+        pos_dp = [int((c >= 0).sum()) for c in codes]
+        pos_one = [int((c >= 0).sum()) for c in own]
+        check(pos_dp[0] == pos_one[0] and abs(pos_dp[1] - pos_one[1]) <= differ[1]
+              and differ[0] == 0,
+              f"{label} step {s}: positives over the global batch FAM {pos_dp[0]} / one "
+              f"process {pos_one[0]} (exact), ODM {pos_dp[1]} / {pos_one[1]}; codes that "
+              f"differ FAM {differ[0]}, ODM {differ[1]} of {codes[1].numel()}")
+        g_err = ((dp["grad"] - grad).norm() / grad.norm()).item()
+        i_err = ((dp["items"] - items.cpu()).abs() / items.cpu().abs()).max().item()
+        names = [n for n, q in model.named_parameters() if q.requires_grad]
+        sizes = [q.numel() for q in optimizer.params]
+
+        def per_tensor(other):
+            return sorted(((((a - b).norm() / b.norm().clamp_min(1e-30)).item(), n)
+                           for n, a, b in zip(names, other.split(sizes), grad.split(sizes))),
+                          reverse=True)
+        per, per_floor = per_tensor(dp["grad"]), per_tensor(grad2)
+        say(f"   {label} step {s}: gradient tensors furthest from one process's, relative to "
+            f"their norm: " + "; ".join(f"{n} {e:.3g}" for e, n in per[:4])
+            + "; the floor's: " + "; ".join(f"{n} {e:.3g}" for e, n in per_floor[:2]))
+        # a sum that misses a rank is off by about half of each tensor, one
+        # that adds the BNs' global gamma and beta again by all of theirs
+        check(g_err <= max(3 * floor, 1e-3) and per[0][0] <= 0.25 and i_err <= 1e-4,
+              f"{label} step {s}: the gradient summed over the ranks within {g_err:.3g} of one "
+              f"process's, relative to its norm (bar max(3 x floor, 1e-3); the floor, one "
+              f"process against its input scaled by 1 + 1e-6: {floor:.3g}), each tensor within "
+              f"{per[0][0]:.3g} of its norm (bar 0.25; floor {per_floor[0][0]:.3g}); loss items "
+              f"within {i_err:.3g} (relative, bar 1e-4) on the ranks' assignment")
+    del model, optimizer, batches, batch
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = True
+    cfg, model, optimizer, ema, batches = train_cli.setup(train_cli.parse_opt(
+        base + ["--dtype", "bfloat16"]))
+    for _ in range(DP_WARMUP):
+        train_step(model, optimizer, ema, batches[0], cfg).tolist()
+    walls = []
+    for _ in range(DP_TIMED):
+        t0 = time.perf_counter()
+        train_step(model, optimizer, ema, batches[0], cfg).tolist()
+        walls.append(1000 * (time.perf_counter() - t0))
+    del model, optimizer, ema, batches
+    torch.cuda.empty_cache()
+    timing = json.loads((work / "timing.0.json").read_text())
+    one, dp_ms = median_spread(walls), median_spread(timing["walls"])
+    per = timing["launches"]
+    check(per["s2a_bn_finish_stats"] == per["s2a_bn_finish_grad"] == 53
+          and per["s2a_channel_moments"] == per["s2a_grad_channel_sums"] == 53
+          and per["s2a_bn_apply"] == per["s2a_bn_dx"] == 53
+          and per["s2a_deform_conv2d_fwd"] == per["s2a_deform_conv2d_bwd"] == 5
+          and per["s2a_box_iou_rotated"] == 2,
+          f"{label} launches a step on rank 0: {per}")
+    return per, dp_ms, one, timing["backend"]
+
+
+def dp_finishing(torch, dev, card):
+    """Phase 16's kernel checks and times: the finishing kernels against the
+    one-launch finish and the plain finish at the 53 R-50 BN shapes, zero
+    rows, and the finishing over a step's layers; returns their rows."""
+    from s2anet_tpu_torch.ops import moments as mo
+
+    # the finishing kernels against the one-launch finish and the plain
+    # finish, on the sums of each of the 53 R-50 BN inputs of a step
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = [(b, h, w, c) for b, c, h, w in bn_input_shapes(torch, "resnet50", BATCH, SIZE)]
+    equal, err = True, {"stats": 0.0, "grad": 0.0}
+    sums = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in shapes:
+            c = shape[-1]
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 1).to(dtype)
+            g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            w = torch.rand(c, generator=gen, device=dev) + 0.5
+            n = x.numel() // c
+            runs = []
+            for split in (False, True):
+                run = (torch.zeros(c, device=dev), torch.ones(c, device=dev),
+                       torch.tensor(0, device=dev))
+                if split:
+                    s_x, s_g = mo.moment_sums(x), mo.pair_sums(g, x)
+                    st = mo.bn_finish_stats(s_x, n, w, *run, 1e-5, 0.9)
+                    gr = mo.bn_finish_grad(s_g, n, st[0], st[2])
+                    plain_run = (torch.zeros(c, device=dev), torch.ones(c, device=dev),
+                                 torch.tensor(0, device=dev))
+                    pst = mo.bn_finish_stats_plain(s_x, n, w, *plain_run, 1e-5, 0.9)
+                    pgr = mo.bn_finish_grad_plain(s_g, n, st[0], st[2])
+                    err["stats"] = max(err["stats"], max(
+                        (a - b).abs().max().item() for a, b in zip(st + run[:2],
+                                                                   pst + plain_run[:2])))
+                    err["grad"] = max(err["grad"], max(
+                        (a - b).abs().max().item() for a, b in zip(gr, pgr)))
+                    if dtype == torch.bfloat16:
+                        sums.append((s_x, s_g, w, n, st[0], st[2]))
+                else:
+                    st = mo.bn_stats(x, w, *run, 1e-5, 0.9)
+                    gr = mo.bn_grad(g, x, st[0], st[2])
+                runs.append(st + gr + run)
+            equal &= all(torch.equal(a, b) for a, b in zip(*runs))
+            del x, g
+    torch.cuda.synchronize()
+    check(equal and len(shapes) == 53,
+          "sums alone + s2a_bn_finish_stats / s2a_bn_finish_grad equal the one-launch sums "
+          "and finishing bit for bit (statistics, running statistics, count, dgamma, dbeta, "
+          "dx coefficients) at the 53 R-50 BN shapes, bf16 and float32")
+    check(err["stats"] <= 1e-5 and err["grad"] <= 1e-5,
+          f"finishing kernels against the plain finishing on the same sums: max |kernel - "
+          f"plain| stats {err['stats']:.3g}, grad {err['grad']:.3g}")
+    x = torch.randn(2, 4, 4, 64, device=dev).bfloat16()
+    out = torch.full((2, 64), float("nan"), device=dev)
+    mo.MOMENTS(x.data_ptr(), out.data_ptr(), None, None, 0, 64, 8, 1, None, None, None, None,
+               1e-5, 0.9, 0.1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(torch.equal(out, torch.zeros_like(out))
+          and torch.equal(mo.moment_sums(x[:0]), torch.zeros(2, 64, device=dev))
+          and torch.equal(mo.pair_sums(x[:0], x[:0]), torch.zeros(2, 64, device=dev)),
+          "zero rows: zero sums (the entry point writes them over NaN; the wrappers, no launch)")
+
+    # the finishing over a step's 53 layers: kernels, plain, SyncBatchNorm's
+    # gather (a yardstick: per-rank means and invstds, not sums). Device
+    # time from the profiler; CUDA events over a loop measure the host's
+    # enqueue here (a launch of a few microseconds behind a Python wrapper)
+    run = [(torch.zeros_like(w), torch.ones_like(w), torch.tensor(0, device=dev))
+           for _, _, w, _, _, _ in sums]
+    gather_in = [(torch.stack([a[0] / n] * DP_WORLD), torch.stack([a[1] / n] * DP_WORLD),
+                  torch.full((DP_WORLD,), n / DP_WORLD, device=dev)) for a, _, _, n, _, _ in sums]
+    fns = {
+        "stats": lambda: [mo.bn_finish_stats_cuda(a, n, w, *r, 1e-5, 0.9)
+                          for (a, _, w, n, _, _), r in zip(sums, run)],
+        "grad": lambda: [mo.bn_finish_grad_cuda(b, n, m, rs) for (_, b, _, n, m, rs) in sums],
+        "plain stats": lambda: [mo.bn_finish_stats_plain(a, n, w, *r, 1e-5, 0.9)
+                                for (a, _, w, n, _, _), r in zip(sums, run)],
+        "plain grad": lambda: [mo.bn_finish_grad_plain(b, n, m, rs)
+                               for (_, b, _, n, m, rs) in sums],
+        "gather": lambda: [torch.batch_norm_gather_stats_with_counts(
+            a, mean, inv, r[0], r[1], 0.1, 1e-5, cnt)
+            for (a, *_), (mean, inv, cnt), r in zip(sums, gather_in, run)],
+    }
+    dev_ms = {k: sum(kernel_split(torch, fn).values()) for k, fn in fns.items()}
+    ev_ms = {k: cuda_ms(torch, fn, 5) for k, fn in fns.items()}
+    ch = sum(a.shape[1] for a, *_ in sums)
+    b_fs = bound(4 * 13 * ch + 8 * len(sums), 12 * ch, F32_FLOP_S)
+    b_fg = bound(4 * 9 * ch, 8 * ch, F32_FLOP_S)
+    say(f"   finishing over the 53 layers of a step ({ch} channels), device time (profiler) "
+        f"and, in brackets, CUDA events over a loop (the host's enqueue): "
+        f"s2a_bn_finish_stats {dev_ms['stats']:.4f} ({ev_ms['stats'][0]:.4f}) ms, plain "
+        f"{dev_ms['plain stats']:.4f} ({ev_ms['plain stats'][0]:.4f}), bound {b_fs[0]:.5f} "
+        f"({b_fs[1]}); s2a_bn_finish_grad {dev_ms['grad']:.4f} ({ev_ms['grad'][0]:.4f}), "
+        f"plain {dev_ms['plain grad']:.4f} ({ev_ms['plain grad'][0]:.4f}), bound "
+        f"{b_fg[0]:.5f} ({b_fg[1]}); torch.batch_norm_gather_stats_with_counts "
+        f"(SyncBatchNorm's, from means and invstds: a yardstick) {dev_ms['gather']:.4f} "
+        f"({ev_ms['gather'][0]:.4f}); {card}")
+    del sums, run, gather_in
+    torch.cuda.empty_cache()
+    return {
+        "stats": dict(max_abs_err=err["stats"], ms=dev_ms["stats"],
+                      event_ms=ev_ms["stats"][0], plain_ms=dev_ms["plain stats"],
+                      plain_event_ms=ev_ms["plain stats"][0], bound_ms=b_fs[0],
+                      bound_by=b_fs[1], library_ms=None, sync_bn_gather_ms=dev_ms["gather"]),
+        "grad": dict(max_abs_err=err["grad"], ms=dev_ms["grad"], event_ms=ev_ms["grad"][0],
+                     plain_ms=dev_ms["plain grad"], plain_event_ms=ev_ms["plain grad"][0],
+                     bound_ms=b_fg[0], bound_by=b_fg[1], library_ms=None)}
+
+
+def dp_two_ranks(torch, dev, out_dir, card):
+    """Phase 16a: two ranks sharing the card over gloo against one process;
+    returns the launches of a data-parallel step on rank 0."""
+    work = out_dir / "dp"
+    shutil.rmtree(work, ignore_errors=True)
+    say(f"   16a: {DP_WORLD} ranks spawned on the one card (gloo), R-50 {SIZE}^2, global batch "
+        f"{BATCH} ({BATCH // DP_WORLD} a rank); {DP_STEPS} float32 steps against one process, "
+        f"then bf16 ms/step")
+    t0 = time.perf_counter()
+    dp_world(torch, work, share=True)
+    say(f"   the ranks' run: {time.perf_counter() - t0:.1f} s (start, build, steps)")
+    per, dp_ms, one_ms, backend = dp_compare(torch, dev, work, "16a")
+    check(backend == "gloo", f"16a backend {backend} (ranks share the card)")
+    say(f"   16a bf16: {DP_WORLD} ranks sharing the card {dp_ms[0]:.2f} ms/step (spread "
+        f"{dp_ms[1]:.1%}, {1000 * BATCH / dp_ms[0]:.2f} img/s of the global batch) against one "
+        f"process at batch {BATCH} {one_ms[0]:.2f} ms/step (spread {one_ms[1]:.1%}); gloo "
+        f"copies every CUDA all-reduce through the host and the ranks share one card: a "
+        f"correctness path, not a rate; {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return per
+
+
+def dp_cli(torch, out_dir):
+    """Phase 16b: the training CLI under torchrun, two ranks on the card,
+    then a resume in one process and val on the deploy weights."""
+    import csv
+    import os
+
+    from s2anet_tpu_torch import val as port_val
+    from s2anet_tpu_torch.data import synth
+    from s2anet_tpu_torch.train import __main__ as train_cli
+
+    say("   16b: the CLI under torchrun")
+    root = out_dir / "dp_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED)
+    synth.write_split(root / "train", DP_TRAIN, rng, SIZE, 15, 3)
+    synth.write_split(root / "val", DP_VAL, rng, SIZE, 15, 3)
+    cfg_path = str(ROOT / "configs" / "dota_r50.yaml")
+    args = ["--config", cfg_path, "--data-root", str(root / "train" / "images"), "--val-root",
+            str(root / "val" / "images"), "--batch-size", str(BATCH), "--seed", str(SEED),
+            "--save-dir", str(root / "run")]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(DP_WORLD), "-m", "s2anet_tpu_torch.train"] + args + ["--epochs", "1"]
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    say(f"   {' '.join(cmd[2:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    (out_dir / "dp_torchrun.log").write_text(proc.stdout + "\n" + proc.stderr)
+    check(proc.returncode == 0, f"torchrun exit {proc.returncode} in {wall:.1f} s "
+          f"(stderr tail: {proc.stderr[-600:]!r})")
+    summaries = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    run = root / "run"
+
+    def results():
+        with open(run / "results.csv", newline="") as f:
+            return list(csv.DictReader(f))
+    rows = results()
+    ckpt = torch.load(run / "weights" / "last", map_location="cpu", weights_only=True)
+    check(len(summaries) == 1 and summaries[0]["ranks"] == DP_WORLD
+          and summaries[0]["steps"] == DP_TRAIN // BATCH and len(rows) == 1
+          and "backend gloo" in proc.stdout
+          and all(np.isfinite(float(v)) for k, v in rows[0].items()
+                  if k.startswith(("train/", "val/")))
+          and all((run / "weights" / n).is_file() for n in ("last", "best", "deploy"))
+          and not any(k.startswith("module.") for part in ("model", "ema") for k in ckpt[part]),
+          f"{DP_WORLD} ranks, {wall:.1f} s: one summary from rank 0 "
+          f"({summaries[0]['steps'] if summaries else '?'} steps, "
+          f"{summaries[0]['ms_per_step'] if summaries else float('nan'):.2f} ms/step to the "
+          f"device's end, validation {summaries[0]['val_seconds'] if summaries else '?'} s), "
+          f"one results.csv row, weights/last, best, deploy, keys without 'module.'; "
+          f"{[x for x in proc.stdout.splitlines() if x.startswith('data parallel')]}")
+    resumed = train_cli.main(args + ["--epochs", "2", "--resume", str(run / "weights" / "last")])
+    rows = results()
+    check(resumed["ranks"] == 1 and resumed["updates"] == 2 * (DP_TRAIN // BATCH)
+          and [r["epoch_or_step"] for r in rows] == ["0", "1"],
+          f"the {DP_WORLD}-rank weights/last resumed in one process: epoch 1, "
+          f"{resumed['updates']} updates in all")
+    out = port_val.main(["--config", cfg_path, "--weights", str(run / "weights" / "deploy"),
+                         "--data-root", str(root / "val" / "images")])
+    check(0.0 <= out["map50"] <= 1.0, f"val on the deploy weights: mAP50 {out['map50']:.4f}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def dp_nccl(torch, dev, out_dir, card):
+    """Phase 16c: NCCL, one card a rank, where there are two cards."""
+    work = out_dir / "dp"
+    gpus = torch.cuda.device_count()
+    if gpus >= DP_WORLD:
+        say(f"   16c: {DP_WORLD} ranks on {DP_WORLD} of {gpus} cards (NCCL)")
+        dp_world(torch, work, share=False)
+        _, nccl_ms, one_ms, backend = dp_compare(torch, dev, work, "16c")
+        check(backend == "nccl", f"16c backend {backend}")
+        say(f"   16c bf16: {DP_WORLD} cards {nccl_ms[0]:.2f} ms/step (spread {nccl_ms[1]:.1%}, "
+            f"{1000 * BATCH / nccl_ms[0]:.2f} img/s) against one card at batch {BATCH} "
+            f"{one_ms[0]:.2f} ms/step; {card}")
+        shutil.rmtree(work, ignore_errors=True)
+    else:
+        say(f"   16c skipped: {gpus} card(s) here; NCCL with one rank a card needs "
+            f"{DP_WORLD} (16a and 16b ran, over gloo)")
+
+
+def phase_data_parallel(torch, dev, out_dir):
+    """Section 16 of the module docstring; returns the finishing kernels'
+    rows and the launches a data-parallel step."""
+    say("== 16. data parallel")
+    card = card_line()
+    finish = dp_finishing(torch, dev, card)
+    per = dp_two_ranks(torch, dev, out_dir, card)
+    dp_cli(torch, out_dir)
+    dp_nccl(torch, dev, out_dir, card)
+    return finish, per
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
     parser.add_argument("--out", default=str(ROOT / "runs" / "chip_smoke"),
@@ -3142,6 +3686,11 @@ def main(argv=None) -> int:
         option_launches, option_ms, sampled_err, prefix_ms = phase_options(torch, dev, out_dir)
     finally:
         shutil.rmtree(out_dir / "options", ignore_errors=True)
+    try:
+        finish, dp_launches = phase_data_parallel(torch, dev, out_dir)
+    finally:
+        for d in ("dp", "dp_cli"):
+            shutil.rmtree(out_dir / d, ignore_errors=True)
 
     say(card)
     src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"
@@ -3194,11 +3743,19 @@ def main(argv=None) -> int:
         dict(name="bn_dx", source=src_m, replaces="s2anet_tpu/models/bn.py:140",
              launches=train_launches["s2a_bn_dx"], path="train", **bn_rows["dx"],
              sampled_max_abs_err=sampled_err["dx"]),
+        dict(name="bn_finish_stats", source=src_m, replaces="s2anet_tpu/models/bn.py:105",
+             launches=dp_launches["s2a_bn_finish_stats"], path="data-parallel train",
+             **finish["stats"]),
+        dict(name="bn_finish_grad", source=src_m, replaces="s2anet_tpu/models/bn.py:135",
+             launches=dp_launches["s2a_bn_finish_grad"], path="data-parallel train",
+             **finish["grad"]),
     ] + quant_rows
     for r in rows:  # launches a train step of each configuration of phase 15
         sym = "s2a_" + r["name"]
         if sym in option_launches["default"]:
             r["option_launches"] = {name: per[sym] for name, per in option_launches.items()}
+        if sym in dp_launches:  # and a data-parallel step's, on rank 0 (phase 16a)
+            r["dp_launches"] = dp_launches[sym]
     say("   phase 15 ms/step: " + ", ".join(f"{name} {t:.2f}" for name, t in option_ms.items())
         + f"; {card}")
     say(json.dumps({"kernels": [{"name": r.pop("name"), "route": "cuda", **r}

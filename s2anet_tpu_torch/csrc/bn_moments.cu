@@ -8,6 +8,8 @@
 //   s2a_grad_channel_sums  g, x -> (sum g, sum g*x), and with mean given
 //                                  dgamma, a = dbeta/n, b = rstd*dgamma/n
 //   s2a_bn_dx              g, x -> dx = cast(mul*((g - a) - (x - mean)*b))
+//   s2a_bn_finish_stats    (sum x, sum x^2) -> the forward's finishing step
+//   s2a_bn_finish_grad     (sum g, sum g*x) -> the backward's finishing step
 //
 // Replace the TPU kernels s2anet_tpu/ops/pallas/moments.py::_moments_kernel
 // (:43) and ::_pair_kernel (:60), and the jnp expressions around them that
@@ -53,6 +55,15 @@
 // element, 4 for the pair); on the small layers of R-50's stages 3-4 (8-17
 // MB) the fixed cost of a launch and of the last cluster's tail (the
 // ticket, the workspace reads, the finishing) is of the order of the read.
+//
+// Data-parallel training adds the sums over the ranks between the sums and
+// the finishing step: each rank launches the sums kernel without its
+// finishing step (SUMS), the [2, C] sums are all-reduced, and
+// s2a_bn_finish_stats / s2a_bn_finish_grad run the same device function
+// finish<MODE> on the global sums, a thread a channel, with 1/n from the
+// global row count: on equal sums they write the bits the one-launch
+// kernel would. A rank without rows (sampled statistics whose prefix ends
+// on an earlier rank) contributes zero sums.
 
 // The finishing step and the elementwise kernels round each operation on
 // its own (__fadd_rn, __fmul_rn, ..., never contracted into an FMA) in the
@@ -314,6 +325,33 @@ channel_sums(const T* __restrict__ x, const T* __restrict__ gr, float* __restric
   if (tid == 0) tickets[blockIdx.y] = 0u;  // ready for the next launch
 }
 
+// The finishing step alone, on sums [2, C] added up elsewhere (over the
+// ranks of a data-parallel group): thread c finishes channel c into out, as
+// the last cluster of channel_sums does.
+template <int MODE>
+__global__ void __launch_bounds__(NT)
+finish_sums(const float* __restrict__ sums, float* __restrict__ out, int C, FinishArgs f) {
+  const int c = blockIdx.x * NT + threadIdx.x;
+  if (c >= C) return;
+  float in[3];
+  finish_inputs<MODE>(c, f, in);
+  finish<MODE>(sums[c], sums[C + c], c, C, out, f, in);
+}
+
+template <int MODE>
+int launch_finish(const void* sums, void* out, int C, const FinishArgs& f, cudaStream_t s) {
+  finish_sums<MODE><<<(C + NT - 1) / NT, NT, 0, s>>>(static_cast<const float*>(sums),
+                                                   static_cast<float*>(out), C, f);
+  return (int)cudaGetLastError();
+}
+
+// No rows: zero sums in out[0:2] (a data-parallel rank whose statistics'
+// prefix ends on an earlier rank adds these); nothing to finish over.
+int zero_sums(void* out, int C, bool finishing, cudaStream_t s) {
+  if (finishing) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemsetAsync(out, 0, 2 * (size_t)C * sizeof(float), s);
+}
+
 template <typename T, bool PAIR, int MODE>
 int launch_sums(const void* x, const void* g, void* out, void* ws, void* tickets, int rows,
                 int C, int chunks, const FinishArgs& f, cudaStream_t s) {
@@ -499,13 +537,15 @@ extern "C" {
 // squares. Otherwise out [6, C] = sum, sum of squares, mean, var, rstd,
 // mul = gamma*rstd; run_mean / run_var [C] become keep*running +
 // take*(mean / var) and the int64 count gains one. One launch; returns its
-// cudaError_t.
+// cudaError_t. rows = 0: out [2, C] = 0 with gamma null (no launch), an
+// error otherwise.
 int s2a_channel_moments(const void* x, void* out, void* ws, void* tickets, int rows, int C,
                         int chunks, int dtype, const void* gamma, void* run_mean,
                         void* run_var, void* count, float eps, float keep, float take,
                         void* stream) {
-  if (rows == 0 || C == 0) return 0;
+  if (C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == 0) return zero_sums(out, C, gamma != nullptr, s);
   FinishArgs f{static_cast<const float*>(gamma), static_cast<float*>(run_mean),
                static_cast<float*>(run_var), static_cast<long long*>(count), nullptr,
                nullptr, 1.0f / (float)rows, eps, keep, take};
@@ -526,13 +566,14 @@ int s2a_channel_moments(const void* x, void* out, void* ws, void* tickets, int r
 // (= dbeta), sum g*x, dgamma, a = dbeta/n, b = rstd*dgamma/n, from the
 // forward's mean and rstd [C]; n, the rows the forward's statistics came
 // from, is rows for full-batch statistics and fewer for sampled ones (the
-// sums still run over all rows).
+// sums still run over all rows). rows = 0: as s2a_channel_moments.
 int s2a_grad_channel_sums(const void* g, const void* x, void* out, void* ws, void* tickets,
                           int rows, int C, int chunks, int dtype, const void* mean,
                           const void* rstd, int n, void* stream) {
-  if (rows == 0 || C == 0) return 0;
+  if (C == 0) return 0;
   if (mean != nullptr && n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == 0) return zero_sums(out, C, mean != nullptr, s);
   FinishArgs f{nullptr, nullptr, nullptr, nullptr, static_cast<const float*>(mean),
                static_cast<const float*>(rstd), 1.0f / (float)n, 0.f, 0.f, 0.f};
   const bool grad = mean != nullptr;
@@ -543,6 +584,33 @@ int s2a_grad_channel_sums(const void* g, const void* x, void* out, void* ws, voi
     return grad ? launch_sums<__nv_bfloat16, true, GRAD>(x, g, out, ws, tickets, rows, C, chunks, f, s)
                 : launch_sums<__nv_bfloat16, true, SUMS>(x, g, out, ws, tickets, rows, C, chunks, f, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// sums float32 [2, C] = (sum x, sum x^2) over n rows, added up over the
+// ranks; out float32 [6, C], gamma, run_mean, run_var, count, eps, keep and
+// take as s2a_channel_moments with gamma given, which writes the same out
+// and running statistics from the same sums. One launch.
+int s2a_bn_finish_stats(const void* sums, void* out, int C, int n, const void* gamma,
+                        void* run_mean, void* run_var, void* count, float eps, float keep,
+                        float take, void* stream) {
+  if (C == 0) return 0;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  FinishArgs f{static_cast<const float*>(gamma), static_cast<float*>(run_mean),
+               static_cast<float*>(run_var), static_cast<long long*>(count), nullptr,
+               nullptr, 1.0f / (float)n, eps, keep, take};
+  return launch_finish<STATS>(sums, out, C, f, static_cast<cudaStream_t>(stream));
+}
+
+// sums float32 [2, C] = (sum g, sum g*x), added up over the ranks; out
+// float32 [5, C] as s2a_grad_channel_sums with mean given (n the rows the
+// forward's statistics came from, over all ranks). One launch.
+int s2a_bn_finish_grad(const void* sums, void* out, int C, int n, const void* mean,
+                       const void* rstd, void* stream) {
+  if (C == 0) return 0;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  FinishArgs f{nullptr, nullptr, nullptr, nullptr, static_cast<const float*>(mean),
+               static_cast<const float*>(rstd), 1.0f / (float)n, 0.f, 0.f, 0.f};
+  return launch_finish<GRAD>(sums, out, C, f, static_cast<cudaStream_t>(stream));
 }
 
 // *blocks = the blocks of one resident wave of the sums kernel for dtype

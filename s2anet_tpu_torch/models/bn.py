@@ -25,6 +25,20 @@ bfloat16 input in bfloat16 arithmetic (mean, mul and bias rounded to
 bfloat16 first); here the normalise is float32 inside, rounded once, as
 the full-batch layer.
 
+Data parallel (a process group of more than one rank,
+``parallel/mesh.py``): the statistics are those of the global batch, as
+the JAX package's ``shard_map`` + ``psum`` (``s2anet_tpu/models/bn.py``).
+Each rank sums its rows without finishing (:func:`moment_sums`,
+:func:`pair_sums`), the ``[2, C]`` sums are all-reduced, and
+:func:`bn_finish_stats` / :func:`bn_finish_grad` finish them with the
+global row count: one kernel each on the card. Sampled statistics take the
+first ``k`` images of the global batch: rank ``r`` holds global images
+``[r*b, (r+1)*b)``, so its statistics rows are those of ``clamp(k - r*b, 0,
+b)`` images (none: zero sums, and dx with ``a = b = 0`` on every row). The
+backward returns dgamma and dbeta of the global batch, already summed over
+the ranks (the train step leaves them out of its gradient sum,
+``parallel/step.py``).
+
 It mirrors flax's ``nn.BatchNorm``, not torch's:
 
 * var = max(E[x^2] - E[x]^2, 0), statistics and normalisation in float32,
@@ -45,11 +59,23 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.moments import bn_apply, bn_dx, bn_grad, bn_stats
+from ..ops.moments import (bn_apply, bn_dx, bn_finish_grad, bn_finish_stats, bn_grad,
+                           bn_stats, moment_sums, pair_sums)
+from ..parallel import mesh
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def stats_images(stats_images: int, b: int, rank: int = 0, world: int = 1):
+    """``(k, k_global)``: the images of this rank's batch of ``b`` that the
+    statistics come from, and their count over the global batch of ``b *
+    world`` (all of them, or its first ``max(1, min(stats_images, b *
+    world))`` when ``stats_images > 0``)."""
+    total = b * world
+    kg = total if stats_images <= 0 else max(1, min(stats_images, total))
+    return min(max(kg - rank * b, 0), b), kg
 
 
 class _BatchNormTrain(torch.autograd.Function):
@@ -61,28 +87,38 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, bn):
         xl = _nhwc(x)
-        k = x.shape[0] if bn.stats_images <= 0 else max(1, min(bn.stats_images, x.shape[0]))
-        mean, _, rstd, mul = bn_stats(xl[:k], weight, bn.running_mean, bn.running_var,
-                                      bn.num_batches_tracked, bn.eps,
-                                      1.0 - bn.momentum)  # flax momentum
+        world = mesh.world_size()
+        k, kg = stats_images(bn.stats_images, x.shape[0], mesh.rank(), world)
+        n = kg * xl.shape[1] * xl.shape[2]  # the statistics' rows, all ranks
+        keep = 1.0 - bn.momentum  # flax momentum
+        run = (bn.running_mean, bn.running_var, bn.num_batches_tracked, bn.eps, keep)
+        if world == 1:
+            mean, _, rstd, mul = bn_stats(xl[:k], weight, *run)
+        else:
+            sums = mesh.all_reduce_sum(moment_sums(xl[:k]))
+            mean, _, rstd, mul = bn_finish_stats(sums, n, weight, *run)
         ctx.save_for_backward(x)
-        ctx.stats = mean, rstd, mul, k
+        ctx.stats = mean, rstd, mul, k, n, world > 1
         return bn_apply(xl, mean, mul, bias).permute(0, 3, 1, 2)
 
     @staticmethod
     def backward(ctx, gy):
         (x,) = ctx.saved_tensors
-        mean, rstd, mul, k = ctx.stats
+        mean, rstd, mul, k, n, summed = ctx.stats
         xl, gl = _nhwc(x), _nhwc(gy)
         # on the statistics' rows dx = gamma*rstd * (g - sum(g)/n
         # - xhat * sum(g*xhat)/n), n their count; sums over every row
-        n = k * xl.shape[1] * xl.shape[2]
-        dgamma, dbeta, a, b = bn_grad(gl, xl, mean, rstd, n)
+        if summed:
+            sums = mesh.all_reduce_sum(pair_sums(gl, xl))
+            dgamma, dbeta, a, b = bn_finish_grad(sums, n, mean, rstd)
+        else:
+            dgamma, dbeta, a, b = bn_grad(gl, xl, mean, rstd, n)
         if k == x.shape[0]:
             dx = bn_dx(gl, xl, mean, mul, a, b)
         else:
             dx = torch.empty_like(xl)
-            bn_dx(gl[:k], xl[:k], mean, mul, a, b, out=dx[:k])
+            if k:
+                bn_dx(gl[:k], xl[:k], mean, mul, a, b, out=dx[:k])
             zero = torch.zeros_like(a)
             bn_dx(gl[k:], xl[k:], mean, mul, zero, zero, out=dx[k:])
         return dx.permute(0, 3, 1, 2), dgamma, dbeta, None

@@ -53,6 +53,7 @@ from ..ops.orn import rotate_arf, rotation_invariant_pooling
 from ..ops.quant import QuantMixin, call_conv
 from ..ops.rbox import rboxes_decode, rboxes_encode
 from ..ops.topk import top_k
+from ..parallel import mesh
 from .anchors import grid_anchors
 from .assigner import assign_labels
 from .conv import Conv2d
@@ -307,12 +308,19 @@ def compute_s2anet_loss(outputs, gt_boxes, gt_classes, gt_mask,
                         fl_gamma: float = 2.0, fl_alpha: float = 0.5,
                         smooth_beta: float = 1.0 / 9.0, odm_balance: float = 1.0,
                         reg_balance: float = 1.0,
-                        fpn_balance=(1.0, 1.0, 1.0, 1.0, 1.0)):
+                        fpn_balance=(1.0, 1.0, 1.0, 1.0, 1.0), distributed: bool = False):
     """Total S2ANet loss over a batch, in float32.
 
     FAM outputs are assigned against the initial anchors, ODM outputs against
     the (detached) refined anchors. Each sum runs over every level and the
     whole batch and is divided by the batch's positives, at least B.
+
+    ``distributed`` (a data-parallel train step, ``parallel/mesh.py``): the
+    batch is this rank's slice of the global batch, and the divisor is the
+    global batch's positives, at least the global B (JAX: the loss of the
+    global batch), from the two counts all-reduced on the device. The
+    items are then this rank's share of the global loss; their sum over
+    the ranks is the global loss (``parallel/step.py`` adds them up).
 
     Args:
       outputs: the head's output dict.
@@ -329,8 +337,13 @@ def compute_s2anet_loss(outputs, gt_boxes, gt_classes, gt_mask,
     refine_all = torch.cat(outputs["refine_anchors"], 1).detach()
     fam_assign = assign_labels(init_all, gt_boxes, gt_mask, imgs_size)
     odm_assign = assign_labels(refine_all, gt_boxes, gt_mask, imgs_size)
-    fam_total_pos = (fam_assign >= 0).sum().clamp_min(b).float()
-    odm_total_pos = (odm_assign >= 0).sum().clamp_min(b).float()
+    if distributed:
+        counts = torch.stack([(fam_assign >= 0).sum(), (odm_assign >= 0).sum()])
+        fam_total_pos, odm_total_pos = mesh.all_reduce_sum(counts).clamp_min(
+            b * mesh.world_size()).float().unbind(0)
+    else:
+        fam_total_pos = (fam_assign >= 0).sum().clamp_min(b).float()
+        odm_total_pos = (odm_assign >= 0).sum().clamp_min(b).float()
 
     fam_cls_loss = fam_reg_loss = odm_cls_loss = odm_reg_loss = 0.0
     start = 0

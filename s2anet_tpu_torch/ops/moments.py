@@ -25,10 +25,19 @@ channels-last ``[N, H, W, C]``), :func:`bn_apply` on all rows,
 and :func:`bn_dx` once on those rows and once, with ``a = b = 0``, on the
 rest, written into one output (``out``).
 
+Data-parallel training (``models/bn.py`` with a process group) splits the
+sums from their finishing step, to add the sums over the ranks between
+them: :func:`moment_sums` and :func:`pair_sums` give the ``[2, C]`` sums
+alone (zeros over no rows), and :func:`bn_finish_stats` and
+:func:`bn_finish_grad` finish the all-reduced sums as :func:`bn_stats` and
+:func:`bn_grad` finish their own, with ``n`` the global row count.
+
 Each runs its plain version for a CPU tensor and a CUDA kernel of
 ``csrc/bn_moments.cu`` for a CUDA tensor: the sums and their finishing
 step are one launch (``MOMENTS``, ``PAIR``; grid from :func:`sums_plan`),
-the elementwise passes two more (``APPLY``, ``DX``). The kernels read their
+the elementwise passes two more (``APPLY``, ``DX``); across ranks the sums
+kernel runs without its finishing step and ``FINISH_STATS`` or
+``FINISH_GRAD`` finishes (one launch over C). The kernels read their
 inputs in place, so the CUDA wrappers raise on a tensor whose ``[..., C]``
 view is not contiguous (an NCHW activation or gradient that is not
 channels-last): a hidden copy would double the bytes the kernels exist to
@@ -49,6 +58,8 @@ PAIR = Kernel("bn_moments", "s2a_grad_channel_sums",
               [P, P, P, P, P, I, I, I, I, P, P, I, P])
 APPLY = Kernel("bn_moments", "s2a_bn_apply", [P, P, P, P, P, I, I, I, P])
 DX = Kernel("bn_moments", "s2a_bn_dx", [P, P, P, P, P, P, P, I, I, I, P])
+FINISH_STATS = Kernel("bn_moments", "s2a_bn_finish_stats", [P, P, I, I, P, P, P, P, F, F, F, P])
+FINISH_GRAD = Kernel("bn_moments", "s2a_bn_finish_grad", [P, P, I, I, P, P, P])
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -91,6 +102,24 @@ def grad_from_sums(sg, sgx, n: int, mean, rstd):
     ``(sum g, sum g*x)``, for statistics taken over ``n`` rows."""
     dgamma = (sgx - mean * sg) * rstd
     return dgamma, sg, sg / n, rstd * dgamma / n
+
+
+def moment_sums_plain(x: torch.Tensor) -> torch.Tensor:
+    return torch.stack(channel_moments_plain(x))
+
+
+def pair_sums_plain(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.stack(grad_channel_sums_plain(g, x))
+
+
+def bn_finish_stats_plain(sums, n: int, weight, running_mean, running_var, tracked,
+                          eps: float, keep: float):
+    return stats_from_sums(sums[0], sums[1], n, weight, running_mean, running_var,
+                           tracked, eps, keep)
+
+
+def bn_finish_grad_plain(sums, n: int, mean, rstd):
+    return grad_from_sums(sums[0], sums[1], n, mean, rstd)
 
 
 def bn_stats_plain(x, weight, running_mean, running_var, tracked, eps: float,
@@ -234,20 +263,66 @@ def _sums_buffer(rows: int, c: int, x: torch.Tensor, k: int, pair: bool):
     return buf, ptr, ptr + 4 * k * c, tickets, chunks
 
 
-def channel_moments_cuda(x: torch.Tensor):
-    rows, c = _rows_c("channel_moments_cuda", x)
+def moment_sums_cuda(x: torch.Tensor) -> torch.Tensor:
+    rows, c = _rows_c("moment_sums_cuda", x)
+    if rows == 0:  # no launch: zero sums
+        return torch.zeros(2, c, dtype=torch.float32, device=x.device)
     buf, po, pw, pt, n = _sums_buffer(rows, c, x, 2, False)
     MOMENTS(x.data_ptr(), po, pw, pt, rows, c, n, _DTYPE_CODE[x.dtype],
             None, None, None, None, 0.0, 0.0, 0.0, _stream(x))
-    return buf[:2].unbind(0)
+    return buf[:2]
 
 
-def grad_channel_sums_cuda(g: torch.Tensor, x: torch.Tensor):
-    rows, c = _rows_c("grad_channel_sums_cuda", g, x)
+def pair_sums_cuda(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    rows, c = _rows_c("pair_sums_cuda", g, x)
+    if rows == 0:
+        return torch.zeros(2, c, dtype=torch.float32, device=x.device)
     buf, po, pw, pt, n = _sums_buffer(rows, c, x, 2, True)
     PAIR(g.data_ptr(), x.data_ptr(), po, pw, pt, rows, c, n, _DTYPE_CODE[x.dtype],
          None, None, rows, _stream(x))
-    return buf[:2].unbind(0)
+    return buf[:2]
+
+
+def channel_moments_cuda(x: torch.Tensor):
+    return moment_sums_cuda(x).unbind(0)
+
+
+def grad_channel_sums_cuda(g: torch.Tensor, x: torch.Tensor):
+    return pair_sums_cuda(g, x).unbind(0)
+
+
+def _finish_inputs(name: str, sums: torch.Tensor, n: int, *vs: torch.Tensor) -> int:
+    if not sums.is_cuda or sums.dtype != torch.float32 or sums.dim() != 2 \
+            or sums.shape[0] != 2 or not sums.is_contiguous():
+        raise ValueError(f"{name}: the sums must be contiguous float32 [2, C] on the card")
+    c = sums.shape[1]
+    _channel_vectors(name, c, sums, *vs)
+    if n <= 0:
+        raise ValueError(f"{name}: statistics over n = {n} rows")
+    return c
+
+
+def bn_finish_stats_cuda(sums, n: int, weight, running_mean, running_var, tracked,
+                         eps: float, keep: float):
+    c = _finish_inputs("bn_finish_stats_cuda", sums, n, weight, running_mean, running_var)
+    if (tracked.get_device() != sums.get_device() or tracked.dtype != torch.int64
+            or tracked.numel() != 1):
+        raise ValueError("bn_finish_stats_cuda: the batch count must be one int64 on the "
+                         "sums' device")
+    out = torch.empty(6, c, dtype=torch.float32, device=sums.device)
+    FINISH_STATS(sums.data_ptr(), out.data_ptr(), c, n, weight.data_ptr(),
+                 running_mean.data_ptr(), running_var.data_ptr(), tracked.data_ptr(), eps,
+                 keep, 1 - keep, _stream(sums))
+    return out[2:6].unbind(0)
+
+
+def bn_finish_grad_cuda(sums, n: int, mean, rstd):
+    c = _finish_inputs("bn_finish_grad_cuda", sums, n, mean, rstd)
+    out = torch.empty(5, c, dtype=torch.float32, device=sums.device)
+    FINISH_GRAD(sums.data_ptr(), out.data_ptr(), c, n, mean.data_ptr(), rstd.data_ptr(),
+                _stream(sums))
+    dbeta, _, dgamma, a, b = out.unbind(0)
+    return dgamma, dbeta, a, b
 
 
 def bn_stats_cuda(x, weight, running_mean, running_var, tracked, eps: float,
@@ -312,6 +387,42 @@ def grad_channel_sums(g: torch.Tensor, x: torch.Tensor):
     if x.device.type == "cpu":
         return grad_channel_sums_plain(g, x)
     return grad_channel_sums_cuda(g, x)
+
+
+def moment_sums(x: torch.Tensor) -> torch.Tensor:
+    """:func:`channel_moments` as one float32 ``[2, C]`` tensor (zeros over
+    no rows), to be added up over ranks."""
+    if x.device.type == "cpu":
+        return moment_sums_plain(x)
+    return moment_sums_cuda(x)
+
+
+def pair_sums(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`grad_channel_sums` as one float32 ``[2, C]`` tensor."""
+    if x.device.type == "cpu":
+        return pair_sums_plain(g, x)
+    return pair_sums_cuda(g, x)
+
+
+def bn_finish_stats(sums, n: int, weight, running_mean, running_var, tracked, eps: float,
+                    keep: float):
+    """The finishing step of :func:`bn_stats` on the sums of
+    :func:`moment_sums` over ``n`` rows (added up over ranks): ``(mean, var,
+    rstd, mul)``, and the running statistics and count updated in place."""
+    if sums.device.type == "cpu":
+        return bn_finish_stats_plain(sums, n, weight, running_mean, running_var, tracked,
+                                     eps, keep)
+    return bn_finish_stats_cuda(sums, n, weight, running_mean, running_var, tracked, eps,
+                                keep)
+
+
+def bn_finish_grad(sums, n: int, mean, rstd):
+    """The finishing step of :func:`bn_grad` on the sums of :func:`pair_sums`
+    (added up over ranks), for statistics over ``n`` rows: ``(dgamma,
+    dbeta, a, b)``."""
+    if sums.device.type == "cpu":
+        return bn_finish_grad_plain(sums, n, mean, rstd)
+    return bn_finish_grad_cuda(sums, n, mean, rstd)
 
 
 def bn_stats(x, weight, running_mean, running_var, tracked, eps: float, keep: float):

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._ext import I, P, Kernel, library
+from ..parallel import mesh
 
 QMAX = 127.0
 
@@ -530,13 +531,22 @@ def calibrate(model, batches, scope=QUANT_SCOPE_DEFAULT):
 
     ``model.set_quant("calib", scope)``, then the float forward over each
     prepared batch of ``batches`` (the ranges fold min / max across them,
-    the merge of the JAX ``calibrate``). Returns the ranges, ``{module
-    name: (act_min, act_max)}``; ``model.set_quant("int8", scope)`` then
-    serves with them.
+    the merge of the JAX ``calibrate``). In a data-parallel group each rank
+    calibrates on its own batches and the ranges then fold across the
+    ranks (min of the minima, max of the maxima: one ``all_reduce`` each),
+    so that every rank bakes the same int8 constants. Returns the ranges,
+    ``{module name: (act_min, act_max)}``; ``model.set_quant("int8",
+    scope)`` then serves with them.
     """
     model.set_quant("calib", scope)
     for x in batches:
         model(x)
+    calib = [m for _, m in quant_modules(model) if m.mode == "calib"]
+    if mesh.world_size() > 1 and calib:
+        for name, fold in (("act_min", mesh.all_reduce_min), ("act_max", mesh.all_reduce_max)):
+            bufs = [getattr(m, name) for m in calib]
+            flat = fold(torch.cat(bufs))
+            torch._foreach_copy_(bufs, list(flat.split([b.numel() for b in bufs])))
     return {n: (m.act_min.clone(), m.act_max.clone())
             for n, m in quant_modules(model) if m.mode == "calib"}
 

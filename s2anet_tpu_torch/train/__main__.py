@@ -38,6 +38,19 @@ peak device memory, and each CUDA kernel's launches per step. With
 ``--save PATH`` it writes the EMA weights as a ``state_dict`` that
 ``python -m s2anet_tpu_torch.predict --weights PATH`` loads.
 
+**Data parallel**: under ``torchrun`` every mode runs on N ranks, one
+process each, ``--batch-size`` being the global batch:
+
+    torchrun --standalone --nproc_per_node N -m s2anet_tpu_torch.train --config ...
+
+(``python -m torch.distributed.run`` is the same launcher). Each rank joins
+the process group (``parallel/mesh.py``: NCCL when each rank has a GPU of
+its own, gloo when ranks share one; ``--multihost`` or
+``S2A_MULTIHOST=1`` asks for the group explicitly, as the JAX
+``train.py``) and computes on ``cuda:LOCAL_RANK``; rank 0 alone writes
+and prints the summary. The bench steps the global batch, each rank its
+slice, and reports ms/step and img/s of the global batch.
+
 Runs on the card unless ``--device cpu``.
 """
 
@@ -57,8 +70,9 @@ from ..config import ModelConfig, TrainConfig, load_config, prune_overrides
 from ..models.detector import S2ANet
 from ..ops.deform_conv import DEFORM_BWD, DEFORM_FWD
 from ..ops.iou_rotated import BOX_IOU
-from ..ops.moments import APPLY, DX, MOMENTS, PAIR
+from ..ops.moments import APPLY, DX, FINISH_GRAD, FINISH_STATS, MOMENTS, PAIR
 from ..ops.nms_rotated import NMS_MASK, NMS_SWEEP
+from ..parallel import mesh
 from .checkpoint import increment_path
 from .optim import Optimizer, freeze_stages
 from .schedule import build_lr_schedule
@@ -67,7 +81,8 @@ from .step import to_device, train_step
 from .trainer import Trainer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-KERNELS = (DEFORM_FWD, DEFORM_BWD, BOX_IOU, NMS_MASK, NMS_SWEEP, MOMENTS, PAIR, APPLY, DX)
+KERNELS = (DEFORM_FWD, DEFORM_BWD, BOX_IOU, NMS_MASK, NMS_SWEEP, MOMENTS, PAIR, APPLY, DX,
+           FINISH_STATS, FINISH_GRAD)
 
 
 def synthetic_batches(n: int, batch: int, size: int, seed: int, max_gt: int = 64):
@@ -128,6 +143,9 @@ def parse_opt(argv=None):
     p.add_argument("--loader", default=None, choices=["thread", "process"],
                    help="loader workers: threads, or forked processes")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group (torchrun's environment; also "
+                        "S2A_MULTIHOST=1); under torchrun with N > 1 ranks it joins anyway")
     # the bench (no --config, no --data-root)
     p.add_argument("--steps", type=int, default=10, help="bench: timed steps")
     p.add_argument("--warmup", type=int, default=1,
@@ -185,10 +203,15 @@ def run_training(opt, callbacks=None) -> dict:
     cfg = make_config(opt)
     device = torch.device(opt.device)
     cuda = device.type == "cuda"
-    trainer = Trainer(cfg, callbacks, device=opt.device)
+    if mesh.world_size() > 1:
+        # every rank has picked the run dir before rank 0 creates it
+        mesh.barrier(device)
+    trainer = Trainer(cfg, callbacks, device=device)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     trainer.train(resume=opt.resume or None)
+    if not trainer.is_main:
+        return {"save_dir": str(trainer.save_dir), "rank": trainer.rank}
     with open(trainer.save_dir / "results.csv", newline="") as f:
         rows = list(csv.DictReader(f))
     t = trainer.timing
@@ -201,7 +224,7 @@ def run_training(opt, callbacks=None) -> dict:
         "loader_wait_ms_per_step": 1000 * t["loader_wait"] / steps,
         "val_seconds": getattr(trainer, "val_seconds", None),
         "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None,
-        "device": str(device),
+        "device": str(device), "ranks": trainer.num_processes,
     }
     print(json.dumps(summary))
     return summary
@@ -210,7 +233,8 @@ def run_training(opt, callbacks=None) -> dict:
 def setup(opt):
     """``(cfg, model, optimizer, ema, batches)`` for the parsed options: the
     seeded model in train mode on the device, channels-last, and the
-    synthetic batches already there."""
+    synthetic batches already there (this rank's slice of each global
+    batch in a data-parallel group)."""
     device = torch.device(opt.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {opt.device}: no CUDA device")
@@ -232,8 +256,11 @@ def setup(opt):
     optimizer = Optimizer(model, lr_fn, tc.momentum, tc.weight_decay,
                                 tc.grad_clip_norm)
     ema = ModelEMA(model, tc.ema_decay, tc.ema_ramp_updates)
-    batches = [to_device(b, device, _DTYPES[opt.dtype]) for b in synthetic_batches(
-        n_batches, opt.batch_size, opt.img_size, opt.seed)]
+    b = mesh.local_batch(opt.batch_size)
+    part = slice(mesh.rank() * b, (mesh.rank() + 1) * b)
+    batches = [to_device({k: v[part] for k, v in batch.items()}, device, _DTYPES[opt.dtype])
+               for batch in synthetic_batches(n_batches, opt.batch_size, opt.img_size,
+                                              opt.seed)]
     return cfg, model, optimizer, ema, batches
 
 
@@ -242,8 +269,17 @@ def main(argv=None, callbacks=None) -> dict:
     printed as the last line. ``callbacks`` (a :class:`..utils.callbacks.
     Callbacks`) reach the trainer's hooks."""
     opt = parse_opt(argv)
-    if not opt.bench:
-        return run_training(opt, callbacks)
+    ours = not torch.distributed.is_initialized()  # a group this call joins, it leaves
+    opt.device = str(mesh.maybe_initialize_distributed(opt.multihost or None, opt.device))
+    summary = run_training(opt, callbacks) if not opt.bench else bench(opt)
+    if ours:
+        mesh.shutdown()
+    return summary
+
+
+def bench(opt) -> dict:
+    """The step bench (the module docstring); rank 0 prints."""
+    say = print if mesh.is_main_process() else (lambda *a, **k: None)
     device = torch.device(opt.device)
     cuda = device.type == "cuda"
     if cuda and torch.cuda.is_available():
@@ -263,9 +299,9 @@ def main(argv=None, callbacks=None) -> dict:
         ms = 1000 * (time.perf_counter() - t0)
         if i >= opt.warmup:
             walls.append(ms)
-        print(f"step {i}: fam_cls {values[0]:.5f} fam_reg {values[1]:.5f} "
-              f"odm_cls {values[2]:.5f} odm_reg {values[3]:.5f} {ms:.1f} ms",
-              flush=True)
+        say(f"step {i}: fam_cls {values[0]:.5f} fam_reg {values[1]:.5f} "
+            f"odm_cls {values[2]:.5f} odm_reg {values[3]:.5f} {ms:.1f} ms",
+            flush=True)
     n_timed = max(len(walls), 1)
     ms_step = sum(walls) / n_timed if walls else None
     summary = {
@@ -278,13 +314,13 @@ def main(argv=None, callbacks=None) -> dict:
                               / n_timed for k in KERNELS},
         "steps": len(walls), "warmup": opt.warmup, "device": str(device),
         "backbone": opt.backbone, "img_size": opt.img_size,
-        "batch_size": opt.batch_size, "dtype": opt.dtype,
+        "batch_size": opt.batch_size, "dtype": opt.dtype, "ranks": mesh.world_size(),
     }
-    if opt.save:
+    if opt.save and mesh.is_main_process():
         Path(opt.save).parent.mkdir(parents=True, exist_ok=True)
         torch.save(ema.module.state_dict(), opt.save)
         summary["saved"] = opt.save
-    print(json.dumps(summary))
+    say(json.dumps(summary))
     return summary
 
 

@@ -1,12 +1,19 @@
 """One training step on one device.
 
-Counterpart of ``s2anet_tpu/parallel/step.py::make_train_step`` without a
-mesh: forward in train mode, assignment and loss, backward, clipping, SGD
-and the EMA (one micro-step under gradient accumulation: the EMA moves
-only when the optimizer updates). Nothing in the step waits for the
-device: the loss normalisation stays on the device, and the one
-data-dependent choice of the JAX step (the gt tier of 64) is made on the
-host from the batch's numpy mask by :func:`to_device`.
+Counterpart of ``s2anet_tpu/parallel/step.py::make_train_step``: forward
+in train mode, assignment and loss, backward, clipping, SGD and the EMA
+(one micro-step under gradient accumulation: the EMA moves only when the
+optimizer updates). Nothing in the step waits for the device: the loss
+normalisation stays on the device, and the one data-dependent choice of
+the JAX step (the gt tier of 64) is made on the host from the batch's
+numpy mask by :func:`to_device` (in a data-parallel group, per rank: it
+only drops padding columns).
+
+In a process group of more than one rank (``parallel/mesh.py``) the batch
+is this rank's slice of the global batch; the BatchNorms and the loss
+count over the global batch, and ``parallel/step.py`` sums the gradient
+and the loss items over the ranks before the update, the JAX step with a
+mesh.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..models.head import compute_s2anet_loss
+from ..parallel.mesh import world_size
+from ..parallel.step import sum_over_ranks
 from .optim import Optimizer
 from .state import ModelEMA
 
@@ -68,7 +77,9 @@ def train_step(model: nn.Module, optimizer: Optimizer, ema: ModelEMA, batch,
                cfg: ModelConfig = ModelConfig()) -> torch.Tensor:
     """One update of ``model`` (in train mode) on a device batch from
     :func:`to_device`; returns the loss items ``[4]`` (fam_cls, fam_reg,
-    odm_cls, odm_reg) on the device, without waiting for them."""
+    odm_cls, odm_reg) on the device, without waiting for them (those of
+    the global batch in a data-parallel group)."""
+    distributed = world_size() > 1
     imgs = batch["imgs"]
     out = model(imgs)
     total, items = compute_s2anet_loss(
@@ -76,9 +87,12 @@ def train_step(model: nn.Module, optimizer: Optimizer, ema: ModelEMA, batch,
         imgs_size=tuple(imgs.shape[-2:]), num_classes=cfg.num_classes,
         fl_gamma=cfg.fl_gamma, fl_alpha=cfg.fl_alpha,
         smooth_beta=cfg.smooth_beta, odm_balance=cfg.odm_balance,
-        reg_balance=cfg.reg_balance, fpn_balance=tuple(cfg.fpn_balance))
+        reg_balance=cfg.reg_balance, fpn_balance=tuple(cfg.fpn_balance),
+        distributed=distributed)
     optimizer.zero_grad()
     total.backward()
+    if distributed:
+        items = sum_over_ranks(model, optimizer.params, items)
     optimizer.step()
     if optimizer.synced:
         ema.update(model, optimizer.count)

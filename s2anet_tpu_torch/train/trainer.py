@@ -30,8 +30,18 @@ device until the epoch ends: nothing in the loop waits for the device per
 step. Every kernel launch, validation's included, is on the one compute
 stream (the BN sums kernels allow one launch per device at a time).
 
-Not ported: the plots (they need matplotlib) and multi-process training
-(``is_main`` is always true).
+**Data parallel** (``torchrun``, a process group of N ranks:
+``parallel/mesh.py``): ``train.batch_size`` is the global batch; each rank
+loads its own slice of every global batch (``BatchLoader(...,
+batch_size // N, shard=rank, num_shards=N)``) and the step computes the
+global batch's math (``train/step.py``), so every rank holds the same
+model, EMA and optimizer. Rank 0 alone (``is_main``) creates the save dir,
+writes ``config.yaml``, logs, validates, and writes the checkpoints and
+the deploy weights; the others wait for its fitness at a broadcast, the
+epoch's barrier. The epoch's loss items are the global batch's. Resume
+loads the same file on every rank.
+
+Not ported: the plots (they need matplotlib).
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from ..data.dota import BatchLoader, DotaDataset
 from ..eval.runner import BatchPipeline, evaluate_on_chips
 from ..models.detector import S2ANet
 from ..models.head import compute_s2anet_loss, s2anet_get_bboxes
+from ..parallel import mesh
 from ..utils.callbacks import Callbacks
 from ..utils.loggers import Loggers
 from .checkpoint import load_checkpoint, save_checkpoint, strip_for_deploy
@@ -64,6 +75,17 @@ ITEM_KEYS = ("fam_cls_loss", "fam_reg_loss", "odm_cls_loss", "odm_reg_loss")
 def fitness(metrics: dict) -> float:
     """fitness = 1.0 * mAP50."""
     return float(metrics.get("map50", 0.0))
+
+
+class _NullLoggers:
+    """The loggers of a rank other than 0: accepts the calls, writes
+    nothing."""
+
+    def log_metrics(self, metrics, step):
+        pass
+
+    def close(self):
+        pass
 
 
 class ValStep:
@@ -102,15 +124,21 @@ class Trainer:
             raise RuntimeError(f"--device {device}: no CUDA device")
         self.cfg = cfg
         self.callbacks = callbacks or Callbacks()
-        self.is_main = True  # one process (multi-GPU: ROADMAP.md Queue 1)
+        # rank-0-only host work: save dir, logs, validation, checkpoints
+        self.rank, self.num_processes = mesh.rank(), mesh.world_size()
+        self.is_main = self.rank == 0
+        self.local_batch = mesh.local_batch(cfg.train.batch_size)  # raises unless it divides
         self.dtype = DTYPES[cfg.train.dtype]
         self.save_dir = Path(cfg.train.save_dir)
-        (self.save_dir / "weights").mkdir(parents=True, exist_ok=True)
-        cfg.save(self.save_dir / "config.yaml")
-        self.loggers = Loggers(self.save_dir, use_wandb=bool(cfg.train.wandb_project),
-                               wandb_project=cfg.train.wandb_project,
-                               wandb_entity=cfg.train.wandb_entity,
-                               run_config=cfg.to_dict())
+        if self.is_main:
+            (self.save_dir / "weights").mkdir(parents=True, exist_ok=True)
+            cfg.save(self.save_dir / "config.yaml")
+            self.loggers = Loggers(self.save_dir, use_wandb=bool(cfg.train.wandb_project),
+                                   wandb_project=cfg.train.wandb_project,
+                                   wandb_entity=cfg.train.wandb_entity,
+                                   run_config=cfg.to_dict())
+        else:
+            self.loggers = _NullLoggers()
         self.model = S2ANet.from_config(cfg.model)
         # seconds of the last train(): the host waiting for the loader, and
         # the epochs' loops to the device's end (validation apart)
@@ -155,9 +183,9 @@ class Trainer:
                          flipud=d.flipud, rot90=d.degrees > 0,
                          hsv=(d.hsv_h, d.hsv_s, d.hsv_v), mixup=d.mixup, mosaic=d.mosaic,
                          translate=d.translate, scale=d.scale)
-        return BatchLoader(ds, self.cfg.train.batch_size, num_workers=d.workers or None,
+        return BatchLoader(ds, self.local_batch, num_workers=d.workers or None,
                            shuffle=True, seed=self.cfg.train.seed, drop_last=True,
-                           mode=d.loader)
+                           mode=d.loader, shard=self.rank, num_shards=self.num_processes)
 
     def train(self, resume: Optional[str] = None, weights: Optional[dict] = None):
         cfg = self.cfg
@@ -188,9 +216,14 @@ class Trainer:
             metrics["time/epoch_s"] = dt
             fit = 0.0
             if cfg.train.val_every_epoch and cfg.data.val_list:
-                val_metrics = self.validate(save_results=epoch == cfg.train.epochs - 1)
-                metrics.update(val_metrics)
-                fit = fitness(val_metrics)
+                if self.is_main:  # rank-0 validation
+                    val_metrics = self.validate(save_results=epoch == cfg.train.epochs - 1)
+                    metrics.update(val_metrics)
+                    fit = fitness(val_metrics)
+                if self.num_processes > 1:
+                    # the same best fitness on every rank; the others wait
+                    # here while rank 0 validates
+                    fit = mesh.broadcast_one_to_all(fit, self.device)
             self.loggers.log_metrics(metrics, epoch)
             self.callbacks.run("on_fit_epoch_end")
 
@@ -201,12 +234,13 @@ class Trainer:
             names = ["last"] + (["best"] if new_best else []) + (
                 [f"epoch{epoch}"] if cfg.train.save_period > 0
                 and epoch % cfg.train.save_period == 0 else [])
-            for name in names:
+            for name in names if self.is_main else ():
                 save_checkpoint(weights_dir / name, self.model, self.ema, self.optimizer,
                                 self.best_fitness, epoch, {"epoch": epoch, "fitness": fit})
             self.callbacks.run("on_model_save")
 
-        strip_for_deploy(self.ema, self.save_dir / "weights" / "deploy")
+        if self.is_main:
+            strip_for_deploy(self.ema, self.save_dir / "weights" / "deploy")
         self.callbacks.run("on_train_end")
         self.loggers.close()
         return self
@@ -216,7 +250,7 @@ class Trainer:
         on the device."""
         cfg = self.cfg
         items = []
-        with BatchPipeline(None, cfg.train.batch_size, cfg.data.img_size,
+        with BatchPipeline(None, self.local_batch, cfg.data.img_size,
                            device=self.device) as pipe:
             loader.staging = pipe
             batches = iter(loader)
