@@ -8,8 +8,10 @@
 //   s2a_grad_channel_sums  g, x -> (sum g, sum g*x), and with mean given
 //                                  dgamma, a = dbeta/n, b = rstd*dgamma/n
 //   s2a_bn_dx              g, x -> dx = cast(mul*((g - a) - (x - mean)*b))
-//   s2a_bn_finish_stats    (sum x, sum x^2) -> the forward's finishing step
-//   s2a_bn_finish_grad     (sum g, sum g*x) -> the backward's finishing step
+//   s2a_bn_apply_finish    x, (sum x, sum x^2) -> the forward's finishing
+//                                  step and y, one launch
+//   s2a_bn_dx_finish       g, x, (sum g, sum g*x) -> the backward's finishing
+//                                  step and dx, one launch
 //
 // Replace the TPU kernels s2anet_tpu/ops/pallas/moments.py::_moments_kernel
 // (:43) and ::_pair_kernel (:60), and the jnp expressions around them that
@@ -58,12 +60,20 @@
 //
 // Data-parallel training adds the sums over the ranks between the sums and
 // the finishing step: each rank launches the sums kernel without its
-// finishing step (SUMS), the [2, C] sums are all-reduced, and
-// s2a_bn_finish_stats / s2a_bn_finish_grad run the same device function
-// finish<MODE> on the global sums, a thread a channel, with 1/n from the
-// global row count: on equal sums they write the bits the one-launch
-// kernel would. A rank without rows (sampled statistics whose prefix ends
-// on an earlier rank) contributes zero sums.
+// finishing step (SUMS), the [2, C] sums are all-reduced, and the kernel
+// that reads the finishing step's result does the finishing itself, so it
+// costs no launch of its own: s2a_bn_apply_finish is bn_apply whose threads
+// first run finish<STATS>'s arithmetic on the global sums for their V
+// channels (1/n from the global row count) and s2a_bn_dx_finish is bn_dx
+// with finish<GRAD>'s. Each thread finishes in registers; the threads of
+// block column 0, row lane 0, which hold every channel vector once, also
+// write the outputs of finish<MODE> (statistics, running statistics and
+// count; dgamma, dbeta, the dx coefficients). On equal sums they write the
+// bits the one-launch sums kernel and bn_apply / bn_dx would. About 30
+// operations and a few loads a channel a thread, against a pass over the
+// rows. A rank without rows (sampled statistics whose prefix ends on an
+// earlier rank) contributes zero sums; its dx takes a = b = 0 on rows at or
+// past stat_rows, as the one-process dx's second range.
 
 // The finishing step and the elementwise kernels round each operation on
 // its own (__fadd_rn, __fmul_rn, ..., never contracted into an FMA) in the
@@ -144,6 +154,35 @@ __device__ __forceinline__ void finish_inputs(int c, const FinishArgs& f, float 
   }
 }
 
+// The forward's finishing arithmetic from (sum x, sum x^2) over 1/inv_n rows:
+// mean = s/n; var = max(q/n - mean^2, 0); rstd = rsqrt(var + eps); mul =
+// gamma*rstd.
+struct Stats {
+  float mean, var, rstd, mul;
+};
+__device__ __forceinline__ Stats stats_of(float s, float q, float gamma, float inv_n, float eps) {
+  Stats r;
+  r.mean = __fmul_rn(s, inv_n);
+  const float d = __fsub_rn(__fmul_rn(q, inv_n), __fmul_rn(r.mean, r.mean));
+  r.var = d < 0.f ? 0.f : d;  // NaN stays NaN, as clamp_min
+  r.rstd = rsqrtf(__fadd_rn(r.var, eps));
+  r.mul = __fmul_rn(gamma, r.rstd);
+  return r;
+}
+
+// The backward's, from (sum g, sum g*x) and the forward's mean and rstd:
+// dgamma = (sum gx - mean*sum g)*rstd; a = dbeta/n; b = rstd*dgamma/n.
+struct Coef {
+  float dgamma, a, b;
+};
+__device__ __forceinline__ Coef coef_of(float sg, float sgx, float mean, float rstd, float inv_n) {
+  Coef r;
+  r.dgamma = __fmul_rn(__fsub_rn(sgx, __fmul_rn(mean, sg)), rstd);
+  r.a = __fmul_rn(sg, inv_n);
+  r.b = __fmul_rn(__fmul_rn(rstd, r.dgamma), inv_n);
+  return r;
+}
+
 // Channel c's sums (a, b) go to out[0:2, c], then
 //   STATS: out[2:6, c] = mean, var, rstd, mul; running statistics updated,
 //          one added to the count of batches (by channel 0)
@@ -154,25 +193,19 @@ __device__ __forceinline__ void finish(float a, float b, int c, int C, float* __
   out[c] = a;
   out[C + c] = b;
   if (MODE == STATS) {
-    // mean = s/n; var = max(q/n - mean^2, 0); rstd = rsqrt(var + eps)
-    const float mean = __fmul_rn(a, f.inv_n);
-    const float d = __fsub_rn(__fmul_rn(b, f.inv_n), __fmul_rn(mean, mean));
-    const float var = d < 0.f ? 0.f : d;  // NaN stays NaN, as clamp_min
-    const float rstd = rsqrtf(__fadd_rn(var, f.eps));
-    out[2 * C + c] = mean;
-    out[3 * C + c] = var;
-    out[4 * C + c] = rstd;
-    out[5 * C + c] = __fmul_rn(in[0], rstd);
-    f.run_mean[c] = __fadd_rn(__fmul_rn(f.keep, in[1]), __fmul_rn(f.take, mean));
-    f.run_var[c] = __fadd_rn(__fmul_rn(f.keep, in[2]), __fmul_rn(f.take, var));
+    const Stats st = stats_of(a, b, in[0], f.inv_n, f.eps);
+    out[2 * C + c] = st.mean;
+    out[3 * C + c] = st.var;
+    out[4 * C + c] = st.rstd;
+    out[5 * C + c] = st.mul;
+    f.run_mean[c] = __fadd_rn(__fmul_rn(f.keep, in[1]), __fmul_rn(f.take, st.mean));
+    f.run_var[c] = __fadd_rn(__fmul_rn(f.keep, in[2]), __fmul_rn(f.take, st.var));
     if (c == 0) *f.count += 1;
   } else if (MODE == GRAD) {
-    // dgamma = (sum gx - mean*sum g)*rstd; a = dbeta/n; b = rstd*dgamma/n
-    const float rstd = in[1];
-    const float dgamma = __fmul_rn(__fsub_rn(b, __fmul_rn(in[0], a)), rstd);
-    out[2 * C + c] = dgamma;
-    out[3 * C + c] = __fmul_rn(a, f.inv_n);
-    out[4 * C + c] = __fmul_rn(__fmul_rn(rstd, dgamma), f.inv_n);
+    const Coef k = coef_of(a, b, in[0], in[1], f.inv_n);
+    out[2 * C + c] = k.dgamma;
+    out[3 * C + c] = k.a;
+    out[4 * C + c] = k.b;
   }
 }
 
@@ -325,26 +358,6 @@ channel_sums(const T* __restrict__ x, const T* __restrict__ gr, float* __restric
   if (tid == 0) tickets[blockIdx.y] = 0u;  // ready for the next launch
 }
 
-// The finishing step alone, on sums [2, C] added up elsewhere (over the
-// ranks of a data-parallel group): thread c finishes channel c into out, as
-// the last cluster of channel_sums does.
-template <int MODE>
-__global__ void __launch_bounds__(NT)
-finish_sums(const float* __restrict__ sums, float* __restrict__ out, int C, FinishArgs f) {
-  const int c = blockIdx.x * NT + threadIdx.x;
-  if (c >= C) return;
-  float in[3];
-  finish_inputs<MODE>(c, f, in);
-  finish<MODE>(sums[c], sums[C + c], c, C, out, f, in);
-}
-
-template <int MODE>
-int launch_finish(const void* sums, void* out, int C, const FinishArgs& f, cudaStream_t s) {
-  finish_sums<MODE><<<(C + NT - 1) / NT, NT, 0, s>>>(static_cast<const float*>(sums),
-                                                   static_cast<float*>(out), C, f);
-  return (int)cudaGetLastError();
-}
-
 // No rows: zero sums in out[0:2] (a data-parallel rank whose statistics'
 // prefix ends on an earlier rank adds these); nothing to finish over.
 int zero_sums(void* out, int C, bool finishing, cudaStream_t s) {
@@ -390,21 +403,14 @@ __device__ __forceinline__ void load_channels(float (&dst)[V], const float* __re
   for (int k = 0; k < V; ++k) dst[k] = src[col + k];
 }
 
-// y = cast((x - mean)*mul + beta): one read of x, one write of y.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-bn_apply(const T* __restrict__ x, const float* __restrict__ mean,
-         const float* __restrict__ mul, const float* __restrict__ beta,
-         T* __restrict__ y, long long rows, int C) {
-  constexpr int V = Vec<T>::N;
+// y = cast((x - mean)*mul + beta) over the rows of this thread's channel
+// vector at col: one read of x, one write of y.
+template <typename T, int V>
+__device__ __forceinline__ void apply_rows(const T* __restrict__ x, T* __restrict__ y,
+                                           const float (&m)[V], const float (&k)[V],
+                                           const float (&bt)[V], long long rows, int C,
+                                           long long col) {
   const int TY = blockDim.y;
-  const int cv = blockIdx.y * blockDim.x + threadIdx.x;
-  if (cv >= C / V) return;
-  const long long col = (long long)cv * V;
-  float m[V], k[V], bt[V];
-  load_channels<V>(m, mean, col);
-  load_channels<V>(k, mul, col);
-  load_channels<V>(bt, beta, col);
   const long long step = (long long)gridDim.x * TY * RU;
   for (long long r = (long long)blockIdx.x * TY * RU + threadIdx.y; r < rows; r += step) {
     Vec<T> xv[RU];
@@ -427,22 +433,17 @@ bn_apply(const T* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
-// dx = cast(mul*((g - a) - (x - mean)*b)): one read of g and x, one write.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-bn_dx(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ mean,
-      const float* __restrict__ mul, const float* __restrict__ ca,
-      const float* __restrict__ cb, T* __restrict__ dx, long long rows, int C) {
-  constexpr int V = Vec<T>::N;
+// dx = cast(mul*((g - a) - (x - mean)*b)) over the rows of this thread's
+// channel vector: one read of g and x, one write. SPLIT: rows at or past
+// stat_rows take a = b = 0 (dx = mul*((g - 0) - (x - mean)*0), the bits of a
+// launch given zero vectors).
+template <typename T, int V, bool SPLIT>
+__device__ __forceinline__ void dx_rows(const T* __restrict__ g, const T* __restrict__ x,
+                                        T* __restrict__ dx, const float (&m)[V],
+                                        const float (&k)[V], const float (&av)[V],
+                                        const float (&bv)[V], long long rows,
+                                        long long stat_rows, int C, long long col) {
   const int TY = blockDim.y;
-  const int cv = blockIdx.y * blockDim.x + threadIdx.x;
-  if (cv >= C / V) return;
-  const long long col = (long long)cv * V;
-  float m[V], k[V], av[V], bv[V];
-  load_channels<V>(m, mean, col);
-  load_channels<V>(k, mul, col);
-  load_channels<V>(av, ca, col);
-  load_channels<V>(bv, cb, col);
   const long long step = (long long)gridDim.x * TY * RU;
   for (long long r = (long long)blockIdx.x * TY * RU + threadIdx.y; r < rows; r += step) {
     Vec<T> xv[RU], gv[RU];
@@ -458,17 +459,122 @@ bn_dx(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict_
     for (int u = 0; u < RU; ++u) {
       const long long rr = r + (long long)u * TY;
       if (rr >= rows) break;
+      const bool st = !SPLIT || rr < stat_rows;
       Vec<T> dv;
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float t = __fsub_rn(
-            __fsub_rn(to_f32(gv[u].v[j]), av[j]),
-            __fmul_rn(__fsub_rn(to_f32(xv[u].v[j]), m[j]), bv[j]));
+            __fsub_rn(to_f32(gv[u].v[j]), st ? av[j] : 0.f),
+            __fmul_rn(__fsub_rn(to_f32(xv[u].v[j]), m[j]), st ? bv[j] : 0.f));
         dv.v[j] = from_f32<T>(__fmul_rn(k[j], t));
       }
       *reinterpret_cast<uint4*>(dx + rr * C + col) = dv.u;
     }
   }
+}
+
+// y = cast((x - mean)*mul + beta), mean and mul given.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+bn_apply(const T* __restrict__ x, const float* __restrict__ mean,
+         const float* __restrict__ mul, const float* __restrict__ beta,
+         T* __restrict__ y, long long rows, int C) {
+  constexpr int V = Vec<T>::N;
+  const int cv = blockIdx.y * blockDim.x + threadIdx.x;
+  if (cv >= C / V) return;
+  const long long col = (long long)cv * V;
+  float m[V], k[V], bt[V];
+  load_channels<V>(m, mean, col);
+  load_channels<V>(k, mul, col);
+  load_channels<V>(bt, beta, col);
+  apply_rows<T, V>(x, y, m, k, bt, rows, C, col);
+}
+
+// The threads that write a fused kernel's per-channel outputs: block column
+// 0, row lane 0. grid.y x threadIdx.x span the channel vectors, so each
+// channel has exactly one writer.
+__device__ __forceinline__ bool channel_writer() {
+  return blockIdx.x == 0 && threadIdx.y == 0;
+}
+
+// bn_apply whose mean and mul come from the global sums [2, C] (sum x, sum
+// x^2): each thread runs finish<STATS>'s arithmetic for its V channels; the
+// writers also write out [6, C], the running statistics and the count, as
+// finish<STATS> does.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+bn_apply_finish(const T* __restrict__ x, const float* __restrict__ sums,
+                const float* __restrict__ beta, float* __restrict__ out, T* __restrict__ y,
+                long long rows, int C, FinishArgs f) {
+  constexpr int V = Vec<T>::N;
+  const int cv = blockIdx.y * blockDim.x + threadIdx.x;
+  if (cv >= C / V) return;
+  const long long col = (long long)cv * V;
+  const bool writer = channel_writer();
+  float m[V], k[V], bt[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = (int)col + j;
+    const float s = sums[c], q = sums[C + c];
+    const Stats st = stats_of(s, q, f.gamma[c], f.inv_n, f.eps);
+    m[j] = st.mean;
+    k[j] = st.mul;
+    bt[j] = beta[c];
+    if (writer) {
+      float in[3];
+      finish_inputs<STATS>(c, f, in);
+      finish<STATS>(s, q, c, C, out, f, in);
+    }
+  }
+  apply_rows<T, V>(x, y, m, k, bt, rows, C, col);
+}
+
+// a, b, mean and mul given.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+bn_dx(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ mean,
+      const float* __restrict__ mul, const float* __restrict__ ca,
+      const float* __restrict__ cb, T* __restrict__ dx, long long rows, int C) {
+  constexpr int V = Vec<T>::N;
+  const int cv = blockIdx.y * blockDim.x + threadIdx.x;
+  if (cv >= C / V) return;
+  const long long col = (long long)cv * V;
+  float m[V], k[V], av[V], bv[V];
+  load_channels<V>(m, mean, col);
+  load_channels<V>(k, mul, col);
+  load_channels<V>(av, ca, col);
+  load_channels<V>(bv, cb, col);
+  dx_rows<T, V, false>(g, x, dx, m, k, av, bv, rows, rows, C, col);
+}
+
+// bn_dx whose a and b come from the global sums [2, C] (sum g, sum g*x) and
+// the forward's mean and rstd (finish<GRAD>'s arithmetic, each thread for
+// its V channels); a = b = 0 on rows at or past stat_rows. The writers also
+// write out [5, C] as finish<GRAD> does.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+bn_dx_finish(const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ sums,
+             const float* __restrict__ mul, float* __restrict__ out, T* __restrict__ dx,
+             long long rows, long long stat_rows, int C, FinishArgs f) {
+  constexpr int V = Vec<T>::N;
+  const int cv = blockIdx.y * blockDim.x + threadIdx.x;
+  if (cv >= C / V) return;
+  const long long col = (long long)cv * V;
+  const bool writer = channel_writer();
+  float m[V], k[V], av[V], bv[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = (int)col + j;
+    const float sg = sums[c], sgx = sums[C + c];
+    float in[3] = {f.mean[c], f.rstd[c], 0.f};
+    const Coef cf = coef_of(sg, sgx, in[0], in[1], f.inv_n);
+    m[j] = in[0];
+    k[j] = mul[c];
+    av[j] = cf.a;
+    bv[j] = cf.b;
+    if (writer) finish<GRAD>(sg, sgx, c, C, out, f, in);
+  }
+  dx_rows<T, V, true>(g, x, dx, m, k, av, bv, rows, stat_rows, C, col);
 }
 
 // Block (TX, NT/TX) over channel vectors x rows, and a grid of one resident
@@ -509,6 +615,35 @@ int launch_apply(const void* x, const void* mean, const void* mul, const void* b
       static_cast<const T*>(x), static_cast<const float*>(mean),
       static_cast<const float*>(mul), static_cast<const float*>(beta),
       static_cast<T*>(y), rows, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_apply_finish(const void* x, const void* sums, const void* beta, void* out, void* y,
+                        int rows, int C, const FinishArgs& f, cudaStream_t s) {
+  if (C % Vec<T>::N != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid, block;
+  const int e = elementwise_grid(bn_apply_finish<T>, Vec<T>::N, rows, C, &grid, &block);
+  if (e != 0) return e;
+  bn_apply_finish<T><<<grid, block, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(sums),
+      static_cast<const float*>(beta), static_cast<float*>(out), static_cast<T*>(y), rows, C,
+      f);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dx_finish(const void* g, const void* x, const void* sums, const void* mul,
+                     void* out, void* dx, int rows, int stat_rows, int C, const FinishArgs& f,
+                     cudaStream_t s) {
+  if (C % Vec<T>::N != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid, block;
+  const int e = elementwise_grid(bn_dx_finish<T>, Vec<T>::N, rows, C, &grid, &block);
+  if (e != 0) return e;
+  bn_dx_finish<T><<<grid, block, 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const float*>(sums),
+      static_cast<const float*>(mul), static_cast<float*>(out), static_cast<T*>(dx), rows,
+      stat_rows, C, f);
   return (int)cudaGetLastError();
 }
 
@@ -586,33 +721,6 @@ int s2a_grad_channel_sums(const void* g, const void* x, void* out, void* ws, voi
   return (int)cudaErrorInvalidValue;
 }
 
-// sums float32 [2, C] = (sum x, sum x^2) over n rows, added up over the
-// ranks; out float32 [6, C], gamma, run_mean, run_var, count, eps, keep and
-// take as s2a_channel_moments with gamma given, which writes the same out
-// and running statistics from the same sums. One launch.
-int s2a_bn_finish_stats(const void* sums, void* out, int C, int n, const void* gamma,
-                        void* run_mean, void* run_var, void* count, float eps, float keep,
-                        float take, void* stream) {
-  if (C == 0) return 0;
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  FinishArgs f{static_cast<const float*>(gamma), static_cast<float*>(run_mean),
-               static_cast<float*>(run_var), static_cast<long long*>(count), nullptr,
-               nullptr, 1.0f / (float)n, eps, keep, take};
-  return launch_finish<STATS>(sums, out, C, f, static_cast<cudaStream_t>(stream));
-}
-
-// sums float32 [2, C] = (sum g, sum g*x), added up over the ranks; out
-// float32 [5, C] as s2a_grad_channel_sums with mean given (n the rows the
-// forward's statistics came from, over all ranks). One launch.
-int s2a_bn_finish_grad(const void* sums, void* out, int C, int n, const void* mean,
-                       const void* rstd, void* stream) {
-  if (C == 0) return 0;
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  FinishArgs f{nullptr, nullptr, nullptr, nullptr, static_cast<const float*>(mean),
-               static_cast<const float*>(rstd), 1.0f / (float)n, 0.f, 0.f, 0.f};
-  return launch_finish<GRAD>(sums, out, C, f, static_cast<cudaStream_t>(stream));
-}
-
 // *blocks = the blocks of one resident wave of the sums kernel for dtype
 // (as above) and pair (0: moments, 1: g, x pairs), in whole clusters of 8.
 int s2a_sums_wave(int dtype, int pair, void* blocks) {
@@ -641,6 +749,49 @@ int s2a_bn_dx(const void* g, const void* x, const void* mean, const void* mul,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dx<float>(g, x, mean, mul, a, b, dx, rows, C, s);
   if (dtype == 1) return launch_dx<__nv_bfloat16>(g, x, mean, mul, a, b, dx, rows, C, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x, y [rows, C] (as above); sums float32 [2, C] = (sum x, sum x^2) over n
+// rows, added up over the ranks (n: the statistics' rows of every rank);
+// gamma, beta float32 [C]; out float32 [6, C], run_mean, run_var, count,
+// eps, keep and take as s2a_channel_moments with gamma given, which writes
+// the same out and running statistics from the same sums; y as s2a_bn_apply
+// from out's mean and mul. One launch (also over rows = 0: the statistics
+// are written).
+int s2a_bn_apply_finish(const void* x, const void* sums, const void* gamma, const void* beta,
+                        void* out, void* run_mean, void* run_var, void* count, void* y,
+                        int rows, int C, int n, int dtype, float eps, float keep, float take,
+                        void* stream) {
+  if (C == 0) return 0;
+  if (n <= 0 || rows < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FinishArgs f{static_cast<const float*>(gamma), static_cast<float*>(run_mean),
+               static_cast<float*>(run_var), static_cast<long long*>(count), nullptr,
+               nullptr, 1.0f / (float)n, eps, keep, take};
+  if (dtype == 0) return launch_apply_finish<float>(x, sums, beta, out, y, rows, C, f, s);
+  if (dtype == 1) return launch_apply_finish<__nv_bfloat16>(x, sums, beta, out, y, rows, C, f, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// g, x, dx [rows, C] (as above); sums float32 [2, C] = (sum g, sum g*x) over
+// all rows, added up over the ranks; mean, rstd, mul float32 [C] from the
+// forward; out float32 [5, C] as s2a_grad_channel_sums with mean given (n
+// the statistics' rows over all ranks); dx as s2a_bn_dx from out's a and b
+// on rows [0, stat_rows) (this rank's statistics rows) and from a = b = 0
+// on rows [stat_rows, rows). One launch, whatever stat_rows.
+int s2a_bn_dx_finish(const void* g, const void* x, const void* sums, const void* mean,
+                     const void* rstd, const void* mul, void* out, void* dx, int rows, int C,
+                     int n, int stat_rows, int dtype, void* stream) {
+  if (C == 0) return 0;
+  if (n <= 0 || rows < 0 || stat_rows < 0 || stat_rows > rows) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FinishArgs f{nullptr, nullptr, nullptr, nullptr, static_cast<const float*>(mean),
+               static_cast<const float*>(rstd), 1.0f / (float)n, 0.f, 0.f, 0.f};
+  if (dtype == 0)
+    return launch_dx_finish<float>(g, x, sums, mul, out, dx, rows, stat_rows, C, f, s);
+  if (dtype == 1)
+    return launch_dx_finish<__nv_bfloat16>(g, x, sums, mul, out, dx, rows, stat_rows, C, f, s);
   return (int)cudaErrorInvalidValue;
 }
 

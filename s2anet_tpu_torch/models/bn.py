@@ -29,15 +29,17 @@ Data parallel (a process group of more than one rank,
 ``parallel/mesh.py``): the statistics are those of the global batch, as
 the JAX package's ``shard_map`` + ``psum`` (``s2anet_tpu/models/bn.py``).
 Each rank sums its rows without finishing (:func:`moment_sums`,
-:func:`pair_sums`), the ``[2, C]`` sums are all-reduced, and
-:func:`bn_finish_stats` / :func:`bn_finish_grad` finish them with the
-global row count: one kernel each on the card. Sampled statistics take the
-first ``k`` images of the global batch: rank ``r`` holds global images
-``[r*b, (r+1)*b)``, so its statistics rows are those of ``clamp(k - r*b, 0,
-b)`` images (none: zero sums, and dx with ``a = b = 0`` on every row). The
-backward returns dgamma and dbeta of the global batch, already summed over
-the ranks (the train step leaves them out of its gradient sum,
-``parallel/step.py``).
+:func:`pair_sums`), the ``[2, C]`` sums are all-reduced, and the
+elementwise pass finishes them with the global row count:
+:func:`bn_apply_finish` (statistics, running statistics and ``y``) and
+:func:`bn_dx_finish` (dgamma, dbeta and ``dx``), one kernel each on the
+card, so a layer is two launches a direction as in one process. Sampled
+statistics take the first ``k`` images of the global batch: rank ``r``
+holds global images ``[r*b, (r+1)*b)``, so its statistics rows are those
+of ``clamp(k - r*b, 0, b)`` images (none: zero sums, and dx with ``a = b =
+0`` on every row). The backward returns dgamma and dbeta of the global
+batch, already summed over the ranks (the train step leaves them out of its
+gradient sum, ``parallel/step.py``).
 
 It mirrors flax's ``nn.BatchNorm``, not torch's:
 
@@ -59,8 +61,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.moments import (bn_apply, bn_dx, bn_finish_grad, bn_finish_stats, bn_grad,
-                           bn_stats, moment_sums, pair_sums)
+from ..ops.moments import (bn_apply, bn_apply_finish, bn_dx, bn_dx_finish, bn_grad, bn_stats,
+                           moment_sums, pair_sums)
 from ..parallel import mesh
 
 
@@ -94,12 +96,13 @@ class _BatchNormTrain(torch.autograd.Function):
         run = (bn.running_mean, bn.running_var, bn.num_batches_tracked, bn.eps, keep)
         if world == 1:
             mean, _, rstd, mul = bn_stats(xl[:k], weight, *run)
+            y = bn_apply(xl, mean, mul, bias)
         else:
             sums = mesh.all_reduce_sum(moment_sums(xl[:k]))
-            mean, _, rstd, mul = bn_finish_stats(sums, n, weight, *run)
+            y, (mean, _, rstd, mul) = bn_apply_finish(xl, sums, n, weight, bias, *run)
         ctx.save_for_backward(x)
         ctx.stats = mean, rstd, mul, k, n, world > 1
-        return bn_apply(xl, mean, mul, bias).permute(0, 3, 1, 2)
+        return y.permute(0, 3, 1, 2)
 
     @staticmethod
     def backward(ctx, gy):
@@ -110,9 +113,10 @@ class _BatchNormTrain(torch.autograd.Function):
         # - xhat * sum(g*xhat)/n), n their count; sums over every row
         if summed:
             sums = mesh.all_reduce_sum(pair_sums(gl, xl))
-            dgamma, dbeta, a, b = bn_finish_grad(sums, n, mean, rstd)
-        else:
-            dgamma, dbeta, a, b = bn_grad(gl, xl, mean, rstd, n)
+            dx, dgamma, dbeta = bn_dx_finish(gl, xl, sums, n, mean, rstd, mul,
+                                             k * xl.shape[1] * xl.shape[2])
+            return dx.permute(0, 3, 1, 2), dgamma, dbeta, None
+        dgamma, dbeta, a, b = bn_grad(gl, xl, mean, rstd, n)
         if k == x.shape[0]:
             dx = bn_dx(gl, xl, mean, mul, a, b)
         else:

@@ -28,20 +28,26 @@ rest, written into one output (``out``).
 Data-parallel training (``models/bn.py`` with a process group) splits the
 sums from their finishing step, to add the sums over the ranks between
 them: :func:`moment_sums` and :func:`pair_sums` give the ``[2, C]`` sums
-alone (zeros over no rows), and :func:`bn_finish_stats` and
-:func:`bn_finish_grad` finish the all-reduced sums as :func:`bn_stats` and
-:func:`bn_grad` finish their own, with ``n`` the global row count.
+alone (zeros over no rows), and the elementwise pass finishes the
+all-reduced sums itself, with ``n`` the global row count:
+
+* :func:`bn_apply_finish` ``(x, sums) -> y`` and the statistics, as
+  :func:`bn_stats`'s finishing step followed by :func:`bn_apply`,
+* :func:`bn_dx_finish` ``(g, x, sums) -> (dx, dgamma, dbeta)``, as
+  :func:`bn_grad`'s finishing step followed by :func:`bn_dx` on the rows
+  below ``stat_rows`` and :func:`bn_dx` with ``a = b = 0`` on the rest.
 
 Each runs its plain version for a CPU tensor and a CUDA kernel of
 ``csrc/bn_moments.cu`` for a CUDA tensor: the sums and their finishing
 step are one launch (``MOMENTS``, ``PAIR``; grid from :func:`sums_plan`),
 the elementwise passes two more (``APPLY``, ``DX``); across ranks the sums
-kernel runs without its finishing step and ``FINISH_STATS`` or
-``FINISH_GRAD`` finishes (one launch over C). The kernels read their
-inputs in place, so the CUDA wrappers raise on a tensor whose ``[..., C]``
-view is not contiguous (an NCHW activation or gradient that is not
-channels-last): a hidden copy would double the bytes the kernels exist to
-save.
+kernel runs without its finishing step, and ``APPLY_FINISH`` and
+``DX_FINISH`` finish inside the elementwise pass: one launch a layer and
+direction after the all-reduce, as ``APPLY`` and ``DX`` in one process.
+The kernels read their inputs in place, so the CUDA wrappers raise on a
+tensor whose ``[..., C]`` view is not contiguous (an NCHW activation or
+gradient that is not channels-last): a hidden copy would double the bytes
+the kernels exist to save.
 """
 
 from __future__ import annotations
@@ -58,8 +64,9 @@ PAIR = Kernel("bn_moments", "s2a_grad_channel_sums",
               [P, P, P, P, P, I, I, I, I, P, P, I, P])
 APPLY = Kernel("bn_moments", "s2a_bn_apply", [P, P, P, P, P, I, I, I, P])
 DX = Kernel("bn_moments", "s2a_bn_dx", [P, P, P, P, P, P, P, I, I, I, P])
-FINISH_STATS = Kernel("bn_moments", "s2a_bn_finish_stats", [P, P, I, I, P, P, P, P, F, F, F, P])
-FINISH_GRAD = Kernel("bn_moments", "s2a_bn_finish_grad", [P, P, I, I, P, P, P])
+APPLY_FINISH = Kernel("bn_moments", "s2a_bn_apply_finish",
+                      [P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, F, P])
+DX_FINISH = Kernel("bn_moments", "s2a_bn_dx_finish", [P, P, P, P, P, P, P, P, I, I, I, I, I, P])
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -120,6 +127,24 @@ def bn_finish_stats_plain(sums, n: int, weight, running_mean, running_var, track
 
 def bn_finish_grad_plain(sums, n: int, mean, rstd):
     return grad_from_sums(sums[0], sums[1], n, mean, rstd)
+
+
+def bn_apply_finish_plain(x, sums, n: int, weight, bias, running_mean, running_var, tracked,
+                          eps: float, keep: float):
+    stats = bn_finish_stats_plain(sums, n, weight, running_mean, running_var, tracked, eps,
+                                  keep)
+    return bn_apply_plain(x, stats[0], stats[3], bias), stats
+
+
+def bn_dx_finish_plain(g, x, sums, n: int, mean, rstd, mul, stat_rows: int):
+    dgamma, dbeta, a, b = bn_finish_grad_plain(sums, n, mean, rstd)
+    c = x.shape[-1]
+    g2, x2 = g.reshape(-1, c), x.reshape(-1, c)
+    dx = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
+    zero = torch.zeros_like(a)
+    bn_dx_plain(g2[:stat_rows], x2[:stat_rows], mean, mul, a, b, out=dx[:stat_rows])
+    bn_dx_plain(g2[stat_rows:], x2[stat_rows:], mean, mul, zero, zero, out=dx[stat_rows:])
+    return dx.reshape(x.shape), dgamma, dbeta
 
 
 def bn_stats_plain(x, weight, running_mean, running_var, tracked, eps: float,
@@ -291,48 +316,65 @@ def grad_channel_sums_cuda(g: torch.Tensor, x: torch.Tensor):
     return pair_sums_cuda(g, x).unbind(0)
 
 
-def _finish_inputs(name: str, sums: torch.Tensor, n: int, *vs: torch.Tensor) -> int:
-    if not sums.is_cuda or sums.dtype != torch.float32 or sums.dim() != 2 \
-            or sums.shape[0] != 2 or not sums.is_contiguous():
-        raise ValueError(f"{name}: the sums must be contiguous float32 [2, C] on the card")
-    c = sums.shape[1]
-    _channel_vectors(name, c, sums, *vs)
+def _count(name: str, tracked: torch.Tensor, x: torch.Tensor) -> None:
+    if tracked.get_device() != x.get_device() or tracked.dtype != torch.int64 \
+            or tracked.numel() != 1:
+        raise ValueError(f"{name}: the batch count must be one int64 on the input's device")
+
+
+def _finish_rows(name: str, sums: torch.Tensor, n: int, *ts: torch.Tensor,
+                 stat_rows: int = 0):
+    """``(rows, C)`` of the fused kernels' ``[..., C]`` inputs ``ts``, after
+    the checks of :func:`_rows_c` and of the all-reduced ``sums``: float32
+    ``[2, C]``, contiguous, on their device; ``n`` (the statistics' rows
+    over all ranks) positive; ``0 <= stat_rows <= rows``."""
+    x = ts[-1]
+    c = x.shape[-1]
+    if sums.dtype != torch.float32 or sums.shape != (2, c) or not sums.is_contiguous():
+        raise ValueError(f"{name}: the sums must be contiguous float32 [2, {c}]")
     if n <= 0:
         raise ValueError(f"{name}: statistics over n = {n} rows")
-    return c
+    rows = _rows(x)
+    if not 0 <= stat_rows <= rows:
+        raise ValueError(f"{name}: stat_rows = {stat_rows} outside [0, {rows}]")
+    _rows_c(name, *ts)
+    if sums.get_device() != x.get_device():
+        raise ValueError(f"{name}: the sums must be on {x.device}")
+    return rows, c
 
 
-def bn_finish_stats_cuda(sums, n: int, weight, running_mean, running_var, tracked,
+def bn_apply_finish_cuda(x, sums, n: int, weight, bias, running_mean, running_var, tracked,
                          eps: float, keep: float):
-    c = _finish_inputs("bn_finish_stats_cuda", sums, n, weight, running_mean, running_var)
-    if (tracked.get_device() != sums.get_device() or tracked.dtype != torch.int64
-            or tracked.numel() != 1):
-        raise ValueError("bn_finish_stats_cuda: the batch count must be one int64 on the "
-                         "sums' device")
-    out = torch.empty(6, c, dtype=torch.float32, device=sums.device)
-    FINISH_STATS(sums.data_ptr(), out.data_ptr(), c, n, weight.data_ptr(),
-                 running_mean.data_ptr(), running_var.data_ptr(), tracked.data_ptr(), eps,
-                 keep, 1 - keep, _stream(sums))
-    return out[2:6].unbind(0)
+    name = "bn_apply_finish_cuda"
+    rows, c = _finish_rows(name, sums, n, x)
+    _channel_vectors(name, c, x, weight, bias, running_mean, running_var)
+    _count(name, tracked, x)
+    out = torch.empty(6, c, dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    APPLY_FINISH(x.data_ptr(), sums.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
+                 tracked.data_ptr(), y.data_ptr(), rows, c, n, _DTYPE_CODE[x.dtype], eps, keep,
+                 1 - keep, _stream(x))
+    return y, out[2:6].unbind(0)
 
 
-def bn_finish_grad_cuda(sums, n: int, mean, rstd):
-    c = _finish_inputs("bn_finish_grad_cuda", sums, n, mean, rstd)
-    out = torch.empty(5, c, dtype=torch.float32, device=sums.device)
-    FINISH_GRAD(sums.data_ptr(), out.data_ptr(), c, n, mean.data_ptr(), rstd.data_ptr(),
-                _stream(sums))
-    dbeta, _, dgamma, a, b = out.unbind(0)
-    return dgamma, dbeta, a, b
+def bn_dx_finish_cuda(g, x, sums, n: int, mean, rstd, mul, stat_rows: int):
+    name = "bn_dx_finish_cuda"
+    rows, c = _finish_rows(name, sums, n, g, x, stat_rows=stat_rows)
+    _channel_vectors(name, c, x, mean, rstd, mul)
+    out = torch.empty(5, c, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    DX_FINISH(g.data_ptr(), x.data_ptr(), sums.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+              mul.data_ptr(), out.data_ptr(), dx.data_ptr(), rows, c, n, stat_rows,
+              _DTYPE_CODE[x.dtype], _stream(x))
+    return dx, out[2], out[0]
 
 
 def bn_stats_cuda(x, weight, running_mean, running_var, tracked, eps: float,
                   keep: float):
     rows, c = _rows_c("bn_stats_cuda", x)
     _channel_vectors("bn_stats_cuda", c, x, weight, running_mean, running_var)
-    if (tracked.get_device() != x.get_device() or tracked.dtype != torch.int64
-            or tracked.numel() != 1):
-        raise ValueError("bn_stats_cuda: the batch count must be one int64 on the "
-                         "input's device")
+    _count("bn_stats_cuda", tracked, x)
     buf, po, pw, pt, n = _sums_buffer(rows, c, x, 6, False)
     MOMENTS(x.data_ptr(), po, pw, pt, rows, c, n, _DTYPE_CODE[x.dtype], weight.data_ptr(),
             running_mean.data_ptr(), running_var.data_ptr(), tracked.data_ptr(), eps,
@@ -404,25 +446,29 @@ def pair_sums(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return pair_sums_cuda(g, x)
 
 
-def bn_finish_stats(sums, n: int, weight, running_mean, running_var, tracked, eps: float,
-                    keep: float):
+def bn_apply_finish(x, sums, n: int, weight, bias, running_mean, running_var, tracked,
+                    eps: float, keep: float):
     """The finishing step of :func:`bn_stats` on the sums of
-    :func:`moment_sums` over ``n`` rows (added up over ranks): ``(mean, var,
-    rstd, mul)``, and the running statistics and count updated in place."""
-    if sums.device.type == "cpu":
-        return bn_finish_stats_plain(sums, n, weight, running_mean, running_var, tracked,
-                                     eps, keep)
-    return bn_finish_stats_cuda(sums, n, weight, running_mean, running_var, tracked, eps,
-                                keep)
+    :func:`moment_sums` over ``n`` rows (added up over ranks), then
+    :func:`bn_apply` of ``x [..., C]`` with its mean and mul: ``(y, (mean,
+    var, rstd, mul))``, and the running statistics and count updated in
+    place. One launch on the card."""
+    if x.device.type == "cpu":
+        return bn_apply_finish_plain(x, sums, n, weight, bias, running_mean, running_var,
+                                     tracked, eps, keep)
+    return bn_apply_finish_cuda(x, sums, n, weight, bias, running_mean, running_var, tracked,
+                                eps, keep)
 
 
-def bn_finish_grad(sums, n: int, mean, rstd):
+def bn_dx_finish(g, x, sums, n: int, mean, rstd, mul, stat_rows: int):
     """The finishing step of :func:`bn_grad` on the sums of :func:`pair_sums`
-    (added up over ranks), for statistics over ``n`` rows: ``(dgamma,
-    dbeta, a, b)``."""
-    if sums.device.type == "cpu":
-        return bn_finish_grad_plain(sums, n, mean, rstd)
-    return bn_finish_grad_cuda(sums, n, mean, rstd)
+    (added up over ranks), for statistics over ``n`` rows, then the input
+    gradient: :func:`bn_dx` with its coefficients on the first ``stat_rows``
+    rows of ``g, x [..., C]`` and with ``a = b = 0`` on the rest. Returns
+    ``(dx, dgamma, dbeta)``. One launch on the card."""
+    if x.device.type == "cpu":
+        return bn_dx_finish_plain(g, x, sums, n, mean, rstd, mul, stat_rows)
+    return bn_dx_finish_cuda(g, x, sums, n, mean, rstd, mul, stat_rows)
 
 
 def bn_stats(x, weight, running_mean, running_var, tracked, eps: float, keep: float):

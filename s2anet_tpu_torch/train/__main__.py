@@ -70,7 +70,7 @@ from ..config import ModelConfig, TrainConfig, load_config, prune_overrides
 from ..models.detector import S2ANet
 from ..ops.deform_conv import DEFORM_BWD, DEFORM_FWD
 from ..ops.iou_rotated import BOX_IOU
-from ..ops.moments import APPLY, DX, FINISH_GRAD, FINISH_STATS, MOMENTS, PAIR
+from ..ops.moments import APPLY, APPLY_FINISH, DX, DX_FINISH, MOMENTS, PAIR
 from ..ops.nms_rotated import NMS_MASK, NMS_SWEEP
 from ..parallel import mesh
 from .checkpoint import increment_path
@@ -82,7 +82,7 @@ from .trainer import Trainer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 KERNELS = (DEFORM_FWD, DEFORM_BWD, BOX_IOU, NMS_MASK, NMS_SWEEP, MOMENTS, PAIR, APPLY, DX,
-           FINISH_STATS, FINISH_GRAD)
+           APPLY_FINISH, DX_FINISH)
 
 
 def synthetic_batches(n: int, batch: int, size: int, seed: int, max_gt: int = 64):

@@ -659,7 +659,7 @@ def test_small_train_step_kernel_path(dev, flags, bn):
     """R-18 at 128^2, batch 2, bf16, one step, with each model option: the
     BN kernels (moments, pair, apply, dx) launch once a training layer (dx
     twice under sampled statistics), AlignConv 5 and 5, the IoU once a
-    stage, no NMS, and one process no finishing kernel of the
+    stage, no NMS, and one process no fused finishing kernel of the
     data-parallel mode."""
     from s2anet_tpu_torch.train.__main__ import KERNELS, main
 
@@ -672,7 +672,7 @@ def test_small_train_step_kernel_path(dev, flags, bn):
         "s2a_deform_conv2d_fwd": 5, "s2a_deform_conv2d_bwd": 5,
         "s2a_box_iou_rotated": 2,  # FAM and ODM assignment, one launch each
         "s2a_nms_rotated_mask": 0, "s2a_nms_rotated_sweep": 0,
-        "s2a_bn_finish_stats": 0, "s2a_bn_finish_grad": 0,
+        "s2a_bn_apply_finish": 0, "s2a_bn_dx_finish": 0,
         **dict(zip(("s2a_channel_moments", "s2a_grad_channel_sums", "s2a_bn_apply",
                     "s2a_bn_dx"), bn))}
 

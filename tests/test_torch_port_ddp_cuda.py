@@ -1,6 +1,7 @@
 """Card-only tests of the BN kernels' data-parallel mode: the sums without
-their finishing step, the finishing kernels, zero-row sums, and one
-BatchNorm layer on two ranks that share the card over gloo.
+their finishing step, the fused finishing kernels (finish + normalise, finish
++ dx), zero-row sums, and one BatchNorm layer on two ranks that share the
+card over gloo.
 
 They need an NVIDIA GPU and ``nvcc``; here they skip. On the card:
 
@@ -44,47 +45,63 @@ def r50_bn_shapes(batch: int = 8, size: int = 1024):
     return shapes
 
 
+@pytest.mark.parametrize("prefix", [0, 2, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_finish_kernels_equal_in_launch_finish(dev, dtype):
-    """At the 53 R-50 1024^2 batch-8 shapes: the sums alone, then the
-    finishing kernel, give the bits of the one-launch sums and finishing
-    (the sums take the same grid, so the same additions in the same order),
-    statistics, running statistics, count and the backward's dgamma, dbeta
-    and dx coefficients; one finishing launch a call."""
+def test_fused_finish_kernels_equal_one_launch_path(dev, dtype, prefix):
+    """At the 53 R-50 1024^2 batch-8 shapes, with the statistics on the first
+    ``prefix`` images (0: another rank's; the forward then takes the whole
+    batch's sums): the sums alone, then s2a_bn_apply_finish and
+    s2a_bn_dx_finish (stat_rows = prefix*H*W), give the bits of the
+    one-launch sums and finishing followed by s2a_bn_apply and s2a_bn_dx on
+    the two row ranges (the sums take the same grid, so the same additions in
+    the same order): statistics, running statistics, count, y, dgamma, dbeta
+    and dx; one launch of each fused kernel a call, and none of the others."""
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = r50_bn_shapes()
     assert len(shapes) == 53
+    fused = (mo.APPLY_FINISH, mo.DX_FINISH, mo.APPLY, mo.DX)
     for shape in shapes:
-        c = shape[-1]
+        b, h, w, c = shape
         x = (torch.randn(shape, generator=gen, device=dev) * 2 + 1).to(dtype)
         g = torch.randn(shape, generator=gen, device=dev).to(dtype)
         weight = torch.rand(c, generator=gen, device=dev) + 0.5
-        n = x.numel() // c
+        bias = torch.randn(c, generator=gen, device=dev)
+        k = prefix or b
+        n, stat_rows = k * h * w, prefix * h * w
         runs = []
         for split in (False, True):
             rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
             tracked = torch.tensor(5, device=dev)
-            before = (mo.FINISH_STATS.launches, mo.FINISH_GRAD.launches)
+            before = [kern.launches for kern in fused]
             if split:
-                stats = mo.bn_finish_stats(mo.moment_sums(x), n, weight, rm, rv, tracked,
-                                           1e-5, 0.9)
-                grad = mo.bn_finish_grad(mo.pair_sums(g, x), n, stats[0], stats[2])
-                assert (mo.FINISH_STATS.launches, mo.FINISH_GRAD.launches) == (
-                    before[0] + 1, before[1] + 1)
+                y, stats = mo.bn_apply_finish(x, mo.moment_sums(x[:k]), n, weight, bias, rm, rv,
+                                              tracked, 1e-5, 0.9)
+                dx, dgamma, dbeta = mo.bn_dx_finish(g, x, mo.pair_sums(g, x), n, stats[0],
+                                                    stats[2], stats[3], stat_rows)
+                assert [kern.launches - n0 for kern, n0 in zip(fused, before)] == [1, 1, 0, 0]
             else:
-                stats = mo.bn_stats(x, weight, rm, rv, tracked, 1e-5, 0.9)
-                grad = mo.bn_grad(g, x, stats[0], stats[2])
-            runs.append(stats + grad + (rm, rv, tracked))
+                stats = mo.bn_stats(x[:k], weight, rm, rv, tracked, 1e-5, 0.9)
+                y = mo.bn_apply(x, stats[0], stats[3], bias)
+                dgamma, dbeta, a, bb = mo.bn_grad(g, x, stats[0], stats[2], n)
+                dx = torch.empty_like(x)
+                if prefix:
+                    mo.bn_dx(g[:prefix], x[:prefix], stats[0], stats[3], a, bb, out=dx[:prefix])
+                zero = torch.zeros_like(a)
+                mo.bn_dx(g[prefix:], x[prefix:], stats[0], stats[3], zero, zero,
+                         out=dx[prefix:])
+            runs.append(tuple(stats) + (rm, rv, tracked, y, dgamma, dbeta, dx))
         torch.cuda.synchronize()
-        for a, b in zip(*runs):
-            assert torch.equal(a, b), shape
+        for a, bb in zip(*runs):
+            assert torch.equal(a, bb), shape
+        assert int(runs[1][6]) == 6
 
 
 def test_zero_row_sums_are_zeros(dev):
     """No rows: the wrappers give zero sums without a launch; the entry
     points write zeros into the output (no garbage to all-reduce) and
-    refuse to finish over no rows; the finishing wrappers refuse n <= 0 and
-    tensors off the card."""
+    refuse to finish over no rows; the fused finishing wrappers refuse n <=
+    0, sums off the input's card and stat_rows past the rows, and over no
+    rows still write the statistics."""
     x = torch.randn(2, 4, 4, 64, device=dev).bfloat16()
     g = torch.randn_like(x)
     n_m, n_p = mo.MOMENTS.launches, mo.PAIR.launches
@@ -107,9 +124,18 @@ def test_zero_row_sums_are_zeros(dev):
     sums = torch.zeros(2, 64, device=dev)
     vec = torch.ones(64, device=dev)
     with pytest.raises(ValueError, match="n = 0"):
-        mo.bn_finish_grad_cuda(sums, 0, vec, vec)
-    with pytest.raises(ValueError, match="float32 \\[2, C\\] on the card"):
-        mo.bn_finish_grad_cuda(sums.cpu(), 4, vec, vec)
+        mo.bn_dx_finish_cuda(g, x, sums, 0, vec, vec, vec, 0)
+    with pytest.raises(ValueError, match="sums must be on cuda"):
+        mo.bn_dx_finish_cuda(g, x, sums.cpu(), 4, vec, vec, vec, 0)
+    with pytest.raises(ValueError, match="stat_rows = 33"):
+        mo.bn_dx_finish_cuda(g, x, sums, 4, vec, vec, vec, 33)
+    # rows = 0: the fused kernels still launch and write the statistics
+    run = (torch.zeros(64, device=dev), torch.ones(64, device=dev), torch.tensor(0, device=dev))
+    y, stats = mo.bn_apply_finish_cuda(x[:0], torch.ones(2, 64, device=dev), 4, vec, vec, *run,
+                                       1e-5, 0.9)
+    torch.cuda.synchronize()
+    assert y.shape == (0, 4, 4, 64) and int(run[2]) == 1
+    assert torch.equal(stats[0], torch.full((64,), 0.25, device=dev))
 
 
 BN_SHAPE = (4, 64, 24, 20)  # global batch 4, 2 a rank
@@ -142,10 +168,10 @@ def _card_world(rank, store, out):
     part = slice(rank * b, (rank + 1) * b)
     res = {}
     for k in (0, 1, 3):
-        before = (mo.FINISH_STATS.launches, mo.FINISH_GRAD.launches, mo.MOMENTS.launches)
+        kernels = (mo.APPLY_FINISH, mo.DX_FINISH, mo.MOMENTS, mo.APPLY, mo.DX)
+        before = [kern.launches for kern in kernels]
         res[k] = _bn_step(x[part], g[part], w, k, dev)
-        res[k].append((mo.FINISH_STATS.launches - before[0], mo.FINISH_GRAD.launches
-                       - before[1], mo.MOMENTS.launches - before[2]))
+        res[k].append(tuple(kern.launches - n0 for kern, n0 in zip(kernels, before)))
     torch.save(res, out / f"card.{rank}.pt")
     mesh.shutdown()
 
@@ -163,8 +189,9 @@ def card_world(tmp_path_factory):
 def test_bn_layer_two_ranks_on_one_card(dev, card_world, k):
     """Two ranks share the card over gloo: one BatchNorm2d in float32,
     forward and backward, against one process on the four images, within
-    1e-5 of the largest value; both ranks launch each finishing kernel once
-    and the sums kernel once (zero rows on rank 1 at k = 1: no launch)."""
+    1e-5 of the largest value; both ranks launch each fused finishing
+    kernel once, the sums kernel once (zero rows on rank 1 at k = 1: no
+    launch) and neither s2a_bn_apply nor s2a_bn_dx."""
     ranks = [w[k] for w in card_world]
     x, g, w = _bn_case()
     want = _bn_step(x, g, w, k, dev)
@@ -174,5 +201,5 @@ def test_bn_layer_two_ranks_on_one_card(dev, card_world, k):
     for i in range(2, 6):
         assert torch.equal(ranks[0][i], ranks[1][i])
         assert (ranks[0][i] - want[i]).abs().max() <= 1e-5 * want[i].abs().max(), i
-    assert ranks[0][6] == (1, 1, 1)
-    assert ranks[1][6] == (1, 1, 0 if k == 1 else 1)
+    assert ranks[0][6] == (1, 1, 1, 0, 0)
+    assert ranks[1][6] == (1, 1, 0 if k == 1 else 1, 0, 0)
