@@ -256,6 +256,48 @@ last line:
                for epoch 1; val on the deploy weights. c: with 2 or more
                cards, a over NCCL, one card a rank, with ms/step against
                one card; skipped (and said so) on one card
+ 17. spatial   predict --mode spatial (each image whole, its height sharded
+               over torchrun's ranks), R-50, configs/dota_r50.yaml (clamp
+               6.0), on weights seeded as the other phases' with the ODM class
+               head's kernel scaled so that 1e-4 of a scene-like image's
+               scores pass predict's 0.3 (scores spread over (0, 1), not
+               within 1e-5 of the prior, so two float32 paths order them
+               alike).
+               b: torchrun --nproc_per_node 2 -m s2anet_tpu_torch.predict
+               --mode spatial, the two ranks sharing the card over gloo, on a
+               1000x1400 scene (padded to 1024x1408 on 1 and 2 ranks):
+               float32 at clamp 6.0 (halo) and 0 (gathered levels), with
+               TF32 off, at a score threshold in a gap of the scores, and bf16
+               at clamp 6.0 on the seeded weights at score_thr 0.005, the
+               three runs at once, each against this process (one rank, the
+               CLI's cudnn.benchmark) on the same scene and weights: float32
+               valid and
+               labels equal, scores and polygon vertices within rtol 1e-4 /
+               atol 1e-3 (plus the file's rounding), bf16 >= 95% matched 1:1
+               by (label, score, rotated IoU >= 0.5); rank 0's launches
+               (AlignConv 5, NMS mask and sweep 1). c: the AlignConv kernel on
+               the blocks each rank builds (halo rows or the gathered level;
+               the exchanges served in this process) at 17b's P3 and the
+               scene's P3 on 2 ranks, P5 and P7 (thinner than the halo) on 4,
+               P4 at clamp 0: f32 within 1e-5 of the largest value of the
+               unsharded kernel's output (h / 128 x 1e-5 on a level of h >
+               128 rows, whose float32 tap rows round with their magnitude),
+               bf16 within 2e-2. a: one process, bf16:
+               phase 11's 3000x4000 scene (padded to 3072x4096) and a
+               4096x4096 one with cudnn.benchmark off, the scene turned and
+               a 4224x3968 one with it on (shapes of their own: cuDNN keeps
+               the first algorithm a shape met), each shape's first scene
+               and 3 repeats (the order alternating), peak
+               memory of each scene (and of chips mode), the scene's seconds
+               in spatial and chips mode in turns (5 each; model and decode
+               or merge apart) at predict's score_thr 0.3, then on the
+               seeded weights at score_thr 0.005 (as phases 5 and 11) the
+               kernel path against the plain path (>= 95% matched 1:1 by
+               rotated IoU) with the scene's launches (AlignConv 5, NMS mask
+               and sweep 1), the spatial forward's launches on one rank equal
+               to the model's forward's on the padded scene name for name
+               (profiler), and the AlignConv kernel's time at the scene's
+               P3-P7 against its bound
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path (training, or serving for the NMS kernels, ``val --quant int8``
@@ -263,7 +305,9 @@ for the int8 kernels; ``eval_launches``: the val run of phase 11 for the
 kernels on that path; ``rect_launches``: the ``val --rect`` run of phase 14,
 ``val --rect --quant int8`` for the int8 kernels; ``option_launches``: a
 train step of each configuration of phase 15; ``dp_launches``: a step of
-phase 16a on rank 0, which is the fused finishing kernels' path), its largest error
+phase 16a on rank 0, which is the fused finishing kernels' path; ``spatial_launches``:
+a 3072x4096 scene of phase 17a, with the AlignConv's time at its levels
+beside), its largest error
 against the plain version, its time, the plain version's and the library
 call's time where there is one, and the least time the card could take
 (``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
@@ -304,7 +348,14 @@ F32_FLOP_S = 67e12
 IOU_PAIR_OPS, IOU_REJECT_OPS = 1100, 15
 
 
+START = time.perf_counter()
+
+
 def say(msg: str) -> None:
+    """Print a line; a phase's heading also gets the seconds since the
+    script started (the whole run must end within the card call's limit)."""
+    if msg.startswith("== "):
+        msg = f"{msg} [{time.perf_counter() - START:.0f} s]"
     print(msg, flush=True)
 
 
@@ -3434,6 +3485,496 @@ def phase_data_parallel(torch, dev, out_dir, parent=None):
     return fused, per
 
 
+# phase 17: spatial serving
+SCENE_HW = (3000, 4000)  # phase 11's scene; padded to 3072x4096
+SQUARE_HW = (4096, 4096)
+SPATIAL_B_HW = (1000, 1400)  # 17b: padded to 1024x1408 on 1 and on 2 ranks
+SPATIAL_TURNS = 5
+SPATIAL_RANKS = 2
+# phase 17's weights: the seeded R-50 with the ODM class head's kernel
+# scaled so that a share ODM_PASS of the (anchor, class) scores of a
+# scene-like 1024^2 image pass predict's threshold 0.3 (a few hundred on
+# the 3000x4000 scene): the scores then spread over (0, 1) instead of
+# sitting within ~1e-5 of the prior 0.01, where two float32 paths'
+# roundings reorder them
+ODM_PASS = 1e-4
+
+
+def spatial_weights(torch, dev, cfg, path: Path) -> float:
+    """Phase 17's weights (see ``ODM_PASS``) as a state_dict file; returns
+    the scale of the class head's kernel."""
+    from s2anet_tpu_torch.models.detector import S2ANet
+
+    model = S2ANet.from_config(cfg).init_weights(torch.Generator().manual_seed(SEED))
+    model = model.eval().to(dev)
+    rng = np.random.default_rng(SEED + 16)
+    img = rng.integers(0, 90, (SIZE, SIZE, 3), dtype=np.uint8)
+    draw_objects(rng, img, 60)
+    x = torch.from_numpy(img).to(dev).permute(2, 0, 1)[None].float() / 255.0
+    head = model.head.odm_cls_head
+    with torch.no_grad():
+        logits = torch.cat([c.reshape(-1, c.shape[-1]) for c in model(x)["odm_cls"]])
+        q = torch.quantile((logits - head.bias).reshape(-1).float(), 1 - ODM_PASS).item()
+        target = float(np.log(0.3 / 0.7)) - head.bias[0].item()  # the logit of 0.3
+        check(q > 0, f"phase 17 weights: the class logits' {1 - ODM_PASS:.4%} quantile {q:.3g} "
+              f"above the prior's")
+        head.weight.mul_(target / q)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+    return target / q
+
+
+def pad_scene(scene, world: int = 1):
+    """``[1, H, W, 3]`` uint8: the scene zero-padded as ``predict --mode
+    spatial`` pads it for ``world`` ranks."""
+    from s2anet_tpu_torch.parallel.spatial import padded_size
+
+    h, w = scene.shape[:2]
+    hp, wp = padded_size(h, w, world)
+    out = np.zeros((1, hp, wp, 3), np.uint8)
+    out[0, :h, :w] = scene
+    return out
+
+
+def scene_dets(torch, pred, img, **kw):
+    """NumPy ``(boxes, labels, valid)`` of a padded image ``[1, H, W, 3]``
+    through the spatial step in this process (one rank)."""
+    from s2anet_tpu_torch.parallel import spatial
+
+    with torch.no_grad():
+        out = spatial.spatial_predict(pred.forward, pred.to_input(img),
+                                      **dict(pred.post_kwargs(), **kw))
+    return tuple(t.cpu().numpy() for t in out)
+
+
+def score_gap(torch, pred, img, lo: int = 30, hi: int = 100) -> float:
+    """A score threshold in the widest gap between the ``lo``-th and
+    ``hi``-th highest (anchor, class) scores of the whole image: no score
+    lies near it."""
+    with torch.no_grad():
+        out = pred.forward(pred.to_input(img))
+    s = torch.cat([torch.sigmoid(c.float()).reshape(-1) for c in out["odm_cls"]])
+    s = torch.sort(s, descending=True).values[:hi].cpu().numpy()
+    i = lo + int(np.argmax(s[lo - 1:hi - 1] - s[lo:hi]))
+    return float((s[i - 1] + s[i]) / 2)
+
+
+def det_lines(torch, dets, names):
+    """The ``<name>.txt`` lines ``predict`` writes for ``(boxes, labels,
+    valid)`` of one image."""
+    from s2anet_tpu_torch.eval.runner import detections_to_polys
+
+    boxes, labels, valid = (a[0] for a in dets)
+    polys, scores = detections_to_polys(boxes, valid)
+    return [f"{names[c]} {s:.4f} " + " ".join(f"{v:.2f}" for v in p)
+            for c, s, p in zip(labels[valid], scores, polys)]
+
+
+def parse_lines(lines, names):
+    """``(labels [n], scores [n], polys [n, 8])`` of ``predict`` lines."""
+    index = {n: i for i, n in enumerate(names)}
+    rows = [line.split() for line in lines]
+    return (np.array([index[r[0]] for r in rows], np.int64),
+            np.array([float(r[1]) for r in rows]),
+            np.array([[float(v) for v in r[2:]] for r in rows]).reshape(-1, 8))
+
+
+def lines_agree_f32(got, want, names) -> str:
+    """The float32 bar on two runs' lines, in order: as many (``valid``),
+    the same labels, scores and polygon vertices within rtol 1e-4 / atol
+    1e-3 plus what the file's rounding can put between two values (1e-4
+    of a score, 0.01 px); returns "" or what failed."""
+    lg, sg, pg = parse_lines(got, names)
+    lw, sw, pw = parse_lines(want, names)
+    if len(lg) != len(lw):
+        return f"{len(lg)} detections against {len(lw)}"
+    if not np.array_equal(lg, lw):
+        return f"labels differ at {np.nonzero(lg != lw)[0][:5].tolist()}"
+    if not np.allclose(sg, sw, rtol=1e-4, atol=1e-3 + 1e-4):
+        return f"scores differ by up to {np.abs(sg - sw).max():.3g}"
+    if not np.allclose(pg, pw, rtol=1e-4, atol=1e-3 + 1e-2):
+        return f"vertices differ by up to {np.abs(pg - pw).max():.3g} px"
+    return ""
+
+
+def lines_matched_iou(torch, dev, got, want, names) -> float:
+    """Lines matched 1:1 by (label, score within 1e-3, rotated IoU >= 0.5),
+    as a fraction of the larger count (the bf16 bar)."""
+    from s2anet_tpu_torch.ops import iou_rotated as iou
+    from s2anet_tpu_torch.ops.rbox import poly_to_rbox_np
+
+    parsed = []
+    for lines in (got, want):
+        lab, sc, polys = parse_lines(lines, names)
+        rb = poly_to_rbox_np(polys).astype(np.float32)
+        parsed.append((np.concatenate([rb, sc[:, None]], 1), lab))
+    (a, la), (b, lb) = parsed
+    ious = iou.box_iou_rotated_plain(torch.from_numpy(a[:, :5]).to(dev),
+                                     torch.from_numpy(b[:, :5]).to(dev)).cpu().numpy()
+    return match_1to1(a, la, b, lb, ious) / max(len(a), len(b), 1)
+
+
+def emulated_rows(torch, fn, x, off, clamp: float, world: int):
+    """``rows.deform_rows(fn, ...)`` as each of ``world`` ranks runs it,
+    in this process: the exchanges are served from the whole ``x`` and
+    ``off``; the ranks' outputs concatenated (phase 17c)."""
+    from s2anet_tpu_torch.parallel import mesh, rows
+
+    h = x.shape[1] // world
+    outs = []
+    for r in range(world):
+        def halo(t, top, bottom, dim, r=r):
+            zeros = t.new_zeros((t.shape[0], max(top, bottom)) + tuple(t.shape[2:]))
+            above = x[:, r * h - top:r * h] if r > 0 else zeros[:, :top]
+            below = x[:, (r + 1) * h:(r + 1) * h + bottom] if r < world - 1 else zeros[:, :bottom]
+            return above, below
+
+        def gather(t, dim):
+            return x if t.dim() == 4 else off
+
+        with mock.patch.object(mesh, "world_size", lambda: world), \
+                mock.patch.object(mesh, "rank", lambda r=r: r), \
+                mock.patch.object(mesh, "halo_rows", halo), \
+                mock.patch.object(mesh, "gather_rows", gather), rows.sharded():
+            outs.append(rows.deform_rows(fn, x[:, r * h:(r + 1) * h],
+                                         off[:, r * h:(r + 1) * h], clamp))
+    return torch.cat(outs, 1)
+
+
+def spatial_halo_card(torch, dev, gen, card):
+    """Phase 17c: the AlignConv kernel on halo-extended and gathered blocks
+    against the unsharded kernel, at the scene's level shapes."""
+    from s2anet_tpu_torch.ops import deform_conv as dc
+
+    say("   17c: the AlignConv halo on the card (the ranks' exchanges served in this "
+        "process) against the unsharded kernel")
+    h3, w3 = pad_scene(np.zeros(SCENE_HW + (1,), np.uint8)).shape[1:3]
+    h3, w3 = h3 // 8, w3 // 8
+    hb, wb = SPATIAL_B_HW[0] // 8 + 3, SPATIAL_B_HW[1] // 8 + 1  # 17b's P3: 128 x 176
+    cases = [  # name, (h, w), ranks, clamp: taller than the halo, thinner, clamp 0
+        ("17b's P3 on 2 ranks, halo", (hb, wb), 2, 6.0),
+        ("the scene's P3 on 2 ranks, halo", (h3, w3), 2, 6.0),
+        ("the scene's P5 on 4 ranks, halo", (h3 // 4, w3 // 4), 4, 6.0),
+        ("the scene's P7 on 4 ranks, gathered", (h3 // 16, w3 // 16), 4, 6.0),
+        ("the scene's P4 on 2 ranks, clamp 0, gathered", (h3 // 2, w3 // 2), 2, 0.0),
+    ]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (h, w), world, clamp in cases:
+            # float32: 1e-5 (JAX's bar for its halo, on maps under 128 rows);
+            # the kernel's tap rows are float32 sums of the row, the tap and
+            # the offset, so a map's own rounding grows with its height,
+            # while a halo block's rows stay small: h / 128 x 1e-5 past 128
+            tol = 1e-5 * max(1.0, h / 128) if dtype == torch.float32 else 2e-2
+            x = torch.randn(1, h, w, 256, generator=gen, device=dev).to(dtype)
+            reach = clamp if clamp > 0 else 20.0
+            off = ((torch.rand(1, h, w, 9, 2, generator=gen, device=dev) * 2 - 1)
+                   * reach).to(dtype)
+            wt = (torch.randn(3, 3, 256, 256, generator=gen, device=dev) * 0.05).to(dtype)
+            want = dc.deform_conv2d_cuda(x, off, wt)
+            got = emulated_rows(torch, lambda xs, os: dc.deform_conv2d_cuda(xs, os, wt),
+                                x, off, clamp, world)
+            torch.cuda.synchronize()
+            err = rel_to_max(got.float(), want.float())
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            check(got.shape == want.shape and err <= tol,
+                  f"{name} {str(dtype)[6:]} [1, {h}, {w}, 256]: max |sharded - unsharded| "
+                  f"{err:.3g} of the largest value (bar {tol:g})")
+    return worst
+
+
+def spatial_cli_runs(torch, dev, work: Path, wfile: Path, names):
+    """Phase 17b: ``predict --mode spatial`` under torchrun on 2 ranks
+    sharing the card (gloo), float32 at clamp 6 and 0 on phase 17's
+    weights and bf16 at clamp 6 on the seeded weights, the three at once,
+    each against this process on the same scene and weights."""
+    import dataclasses
+    import os
+
+    from s2anet_tpu_torch import predict as port_predict
+    from s2anet_tpu_torch.config import load_config
+
+    rng = np.random.default_rng(SEED + 17)
+    scene = rng.integers(0, 90, SPATIAL_B_HW + (3,), dtype=np.uint8)
+    draw_objects(rng, scene, 40)
+    (work / "b_src").mkdir(parents=True, exist_ok=True)
+    np.save(work / "b_src" / "scene_b.npy", scene)
+    clamp0 = work / "clamp0.yaml"
+    clamp0.write_text((ROOT / "configs" / "dota_r50.yaml").read_text().replace(
+        "align_offset_clamp: 6.0", "align_offset_clamp: 0.0"))
+    configs = {6.0: ROOT / "configs" / "dota_r50.yaml", 0.0: clamp0}
+    img = pad_scene(scene, SPATIAL_RANKS)
+    check(pad_scene(scene, 1).shape == img.shape, f"17b scene {SPATIAL_B_HW} pads alike on "
+          f"1 and {SPATIAL_RANKS} ranks: {img.shape[1:3]}")
+    # float32 on phase 17's weights at a threshold in a gap of the scores;
+    # bf16 on the seeded weights at 0.005, as phases 5 and 11 hold bf16
+    # (there the scaled class head turns bf16 roundings into score
+    # differences above the match's 1e-3)
+    runs = [("float32", 6.0, str(wfile)), ("float32", 0.0, str(wfile)), ("bfloat16", 6.0, "")]
+    refs, thr = {}, {}
+    # the CLI's autotuning setting: two ranks autotuning on one card at
+    # once may choose other algorithms than this process, and in bf16 those
+    # move random-weight detections past the bar
+    torch.backends.cudnn.benchmark = port_predict.CUDNN_BENCHMARK["spatial"]
+    for dtype, clamp, weights in runs:
+        torch.backends.cudnn.allow_tf32 = dtype != "float32"
+        cfg = load_config(str(configs[clamp])).model
+        pred = port_predict.S2ANetPredictor(cfg, weights, "cuda",
+                                            port_predict.DTYPES[dtype], SEED)
+        pred.divide = True
+        thr[(dtype, clamp)] = score_gap(torch, pred, img) if weights else 0.005
+        pred.cfg = dataclasses.replace(cfg, score_thr=thr[(dtype, clamp)])
+        refs[(dtype, clamp)] = det_lines(torch, scene_dets(torch, pred, img), names)
+        del pred
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0", OMP_NUM_THREADS="2")
+    env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    env.pop("WORLD_SIZE", None)
+    procs = {}
+    t0 = time.perf_counter()
+    for dtype, clamp, weights in runs:
+        save = work / f"b_{dtype}_{clamp:g}"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+               str(SPATIAL_RANKS), "-m", "s2anet_tpu_torch.predict", "--mode", "spatial",
+               "--source", str(work / "b_src"), "--config", str(configs[clamp]),
+               "--seed", str(SEED), "--dtype", dtype, "--conf", repr(thr[(dtype, clamp)]),
+               "--save-dir", str(save)] + (["--weights", weights] if weights else [])
+        say(f"   {' '.join(cmd[2:])}")
+        procs[(dtype, clamp)] = (save, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for (dtype, clamp), (save, proc) in procs.items():
+        out, err = proc.communicate(timeout=300)
+        log = work.parent / f"spatial_torchrun_{dtype}_{clamp:g}.log"
+        log.write_text(out + "\n" + err)
+        check(proc.returncode == 0, f"17b torchrun {dtype} clamp {clamp:g}: exit "
+              f"{proc.returncode} (stderr tail: {err[-600:]!r})")
+        summaries = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+        s = summaries[0] if len(summaries) == 1 else {}
+        got = (save / "scene_b.txt").read_text().splitlines()
+        want = refs[(dtype, clamp)]
+        with log.open("a") as f:  # both runs' lines, beside the log
+            f.write("\n".join(["== one process"] + want + [f"== {SPATIAL_RANKS} ranks"] + got))
+        launches = s.get("launches", {})
+        check(s.get("mode") == "spatial" and s.get("ranks") == SPATIAL_RANKS
+              and "backend gloo" in out and launches.get("s2a_deform_conv2d_fwd") == 5
+              and launches.get("s2a_nms_rotated_mask") == 1
+              and launches.get("s2a_nms_rotated_sweep") == 1,
+              f"17b {dtype} clamp {clamp:g}: one summary from rank 0 of {s.get('ranks')} "
+              f"ranks over gloo, rank 0's launches {launches}, model "
+              f"{s.get('model_seconds')} s, decode {s.get('decode_seconds')} s")
+        if dtype == "float32":
+            bad = lines_agree_f32(got, want, names)
+            check(not bad and len(want) > 0,
+                  f"17b float32 clamp {clamp:g} (score_thr {thr[(dtype, clamp)]:.6f}): {len(got)} "
+                  f"detections on {SPATIAL_RANKS} ranks against one process's {len(want)}: "
+                  f"valid and labels equal, scores and vertices within rtol 1e-4 / atol 1e-3 "
+                  f"(+ the file's rounding) {bad or 'met'}")
+        else:
+            frac = lines_matched_iou(torch, dev, got, want, names)
+            check(frac >= 0.95 and len(want) > 0,
+                  f"17b bf16 clamp {clamp:g}, seeded weights, score_thr 0.005: {len(got)} "
+                  f"detections on {SPATIAL_RANKS} ranks "
+                  f"against one process's {len(want)}, matched 1:1 by (label, score, rotated "
+                  f"IoU >= 0.5) {frac:.4f}")
+    say(f"   17b: the three torchrun runs together {time.perf_counter() - t0:.1f} s")
+
+
+def spatial_one_process(torch, dev, scene, wfile: Path, card):
+    """Phase 17a: one process, whole scenes (R-50, configs/dota_r50.yaml,
+    bf16). Returns the launches of the kernel path's run and the AlignConv
+    kernel's times at the scene's levels."""
+    import dataclasses
+
+    from s2anet_tpu_torch import predict as port_predict
+    from s2anet_tpu_torch.config import load_config
+    from s2anet_tpu_torch.models import head as head_mod
+    from s2anet_tpu_torch.ops import deform_conv as dc
+    from s2anet_tpu_torch.ops import nms_rotated as nms
+    from s2anet_tpu_torch.parallel import spatial
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    full = load_config(str(ROOT / "configs" / "dota_r50.yaml"))
+    cfg = dataclasses.replace(full.model, score_thr=full.model.predict_score_thr)
+    pred = port_predict.S2ANetPredictor(cfg, str(wfile), "cuda", torch.bfloat16, SEED)
+    pred.divide = True
+    rng = np.random.default_rng(SEED + 18)
+    square = rng.integers(0, 90, SQUARE_HW + (3,), dtype=np.uint8)
+    draw_objects(rng, square, 300)
+    # cuDNN keeps one algorithm a conv shape, found by whichever setting met
+    # the shape first, so each setting gets shapes of its own: benchmark off
+    # the scene and the square, on the scene turned (the same pixels) and a
+    # 4224x3968 (about the square's), the order alternating
+    scenes = {"3000x4000": scene, "4096x4096": square,
+              "4000x3000": np.ascontiguousarray(scene.transpose(1, 0, 2)),
+              "4224x3968": np.ascontiguousarray(square[:, :3968].repeat(2, 0)[:4224])}
+    tuning = [("3000x4000", False), ("4000x3000", True), ("4224x3968", True),
+              ("4096x4096", False)]
+
+    def spatial_s(name, bench: bool):
+        torch.backends.cudnn.benchmark = bench
+        timing = {}
+        t0 = time.perf_counter()
+        _, dets = next(port_predict.serve_spatial(pred, [(name, scenes[name])], timing))
+        return time.perf_counter() - t0, timing, len(dets)
+
+    # first scene of a shape new to this process, then 3 repeats
+    tune = {}
+    for name, bench in tuning:
+        first = spatial_s(name, bench)[0]
+        again = median_spread([spatial_s(name, bench)[0] for _ in range(3)])
+        mp = np.prod(pad_scene(scenes[name]).shape[1:3]) / 1e6
+        tune[(name, bench)] = (first, again[0], again[0] / mp)
+        say(f"   17a {name} padded {pad_scene(scenes[name]).shape[1:3]}, cudnn.benchmark "
+            f"{bench}: first scene {first:.3f} s, repeat {again[0]:.4f} s (median of 3, "
+            f"spread {again[1]:.1%}; {1e3 * again[0] / mp:.3f} ms a megapixel)")
+    chosen = torch.backends.cudnn.benchmark = port_predict.CUDNN_BENCHMARK["spatial"]
+    for bench in (False, True):
+        runs = [v for (n, b), v in tune.items() if b == bench]
+        say(f"   17a cudnn.benchmark {bench}: first scene over the repeat "
+            + ", ".join(f"{f - r:.3f}" for f, r, _ in runs) + " s; repeats "
+            + ", ".join(f"{1e3 * m:.3f}" for _, _, m in runs) + " ms a megapixel")
+    say(f"   17a: predict --mode spatial sets cudnn.benchmark {chosen}; {card}")
+    scenes = {k: scenes[k] for k in ("3000x4000", "4096x4096")}
+
+    # peak memory of a whole scene
+    peaks = {}
+    for name in scenes:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        spatial_s(name, chosen)
+        peaks[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    torch.backends.cudnn.benchmark = True  # chips mode's setting
+    torch.cuda.reset_peak_memory_stats(dev)
+    next(port_predict.serve_chips(pred, [("scene", scene)], SIZE, 200, BATCH, cfg.nms_iou_thr))
+    peaks["chips"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    say("   17a peak memory: " + ", ".join(f"{n} {g:.2f} GiB" for n, g in peaks.items())
+        + f" (chips mode, batch {BATCH}: {peaks['chips']:.2f} GiB)")
+
+    # scene seconds, spatial against chips mode in turns (5 each, after a warm-up)
+    def chips_s():
+        torch.backends.cudnn.benchmark = True
+        timing = {}
+        t0 = time.perf_counter()
+        _, n_windows, dets = next(port_predict.serve_chips(
+            pred, [("scene", scene)], SIZE, 200, BATCH, cfg.nms_iou_thr, timing))
+        return time.perf_counter() - t0, timing, len(dets)
+
+    runs = {"spatial": lambda: spatial_s("3000x4000", chosen), "chips": chips_s}
+    for fn in runs.values():
+        fn()
+    got = {k: [] for k in runs}
+    for _ in range(SPATIAL_TURNS):
+        for k, fn in runs.items():
+            got[k].append(fn())
+    for k, res in got.items():
+        wall = median_spread([r[0] for r in res])
+        second = "decode" if k == "spatial" else "merge"
+        model = median_spread([r[1]["model"] for r in res])
+        other = median_spread([r[1][second] for r in res])
+        say(f"   17a scene {SCENE_HW[0]}x{SCENE_HW[1]}, {k} mode (bf16, score_thr "
+            f"{cfg.score_thr}, {res[0][2]} detections): {wall[0]:.4f} s (median of "
+            f"{SPATIAL_TURNS} in turns, spread {wall[1]:.1%}): model {model[0]:.4f} s, "
+            f"{second} {other[0]:.4f} s; {card}")
+    ratio = median_spread([r[0] for r in got["spatial"]])[0] / median_spread(
+        [r[0] for r in got["chips"]])[0]
+    say(f"   17a spatial / chips scene seconds: {ratio:.3f} (model pixels 12.58 M against "
+        f"20.97 M: 0.600)")
+
+    # the kernel path against the plain path, and the launches of one
+    # scene: the seeded weights at score_thr 0.005, as phases 5 and 11
+    # hold bf16 (4096 NMS candidates)
+    del pred
+    torch.backends.cudnn.benchmark = chosen
+    pred = port_predict.S2ANetPredictor(dataclasses.replace(full.model, score_thr=0.005), "",
+                                        "cuda", torch.bfloat16, SEED)
+    pred.divide = True
+    img = pad_scene(scene)
+    counted = (dc.DEFORM_FWD, nms.NMS_MASK, nms.NMS_SWEEP)
+    for k in counted:
+        k.launches = 0
+    det_k = scene_dets(torch, pred, img)
+    launches = {k.symbol: k.launches for k in counted}
+    with plain_path(head_mod, dc, nms):
+        det_p = scene_dets(torch, pred, img)
+    _, by_iou, total = detection_agreement(torch, dev, det_k, det_p)
+    check(launches == {"s2a_deform_conv2d_fwd": 5, "s2a_nms_rotated_mask": 1,
+                       "s2a_nms_rotated_sweep": 1} and by_iou >= 0.95,
+          f"17a scene {img.shape[1]}x{img.shape[2]}, bf16, seeded weights, score_thr 0.005: "
+          f"launches {launches}; kernel path against plain path, {total} detections, "
+          f"matched 1:1 by (label, score, rotated IoU >= 0.5) {by_iou:.4f}")
+
+    # one rank: the spatial step launches the model's forward as it is
+    x = pred.to_input(img)
+    with torch.no_grad():
+        by_name = [launches_by_name(torch, lambda: spatial.spatial_forward(pred.forward, x)),
+                   launches_by_name(torch, lambda: pred.forward(x))]
+    check(by_name[0] == by_name[1],
+          f"17a one rank: the spatial forward puts on the device what the model's forward "
+          f"on the padded scene does, name for name ({sum(by_name[0].values())} launches, "
+          f"copies and fills in {len(by_name[0])} names against {sum(by_name[1].values())} "
+          f"in {len(by_name[1])})")
+    del x
+
+    # the AlignConv kernel at the scene's levels (P3-P7 of 3072x4096, bf16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    levels = []
+    for s in cfg.strides:
+        h, w = img.shape[1] // s, img.shape[2] // s
+        levels.append(((torch.randn(1, h, w, 256, generator=gen, device=dev)).bfloat16(),
+                       (torch.randn(1, h, w, 9, 2, generator=gen, device=dev) * 3).bfloat16(),
+                       (torch.randn(3, 3, 256, 256, generator=gen, device=dev) * 0.05).bfloat16()))
+    t_k, s_k = cuda_ms(torch, lambda: [dc.deform_conv2d_cuda(*a) for a in levels], 10)
+    nbytes = ops = 0
+    for xl, _, wl in levels:
+        cells = xl.numel() // 256
+        nbytes += cells * (2 * 256 + 18 * 4 + 2 * 256) + 9 * 256 * 256 * 2
+        ops += 2 * cells * 9 * 256 * 256
+    b = bound(nbytes, ops, BF16_FLOP_S)
+    per = []
+    for xl, ol, wl in levels:
+        t_l, _ = cuda_ms(torch, lambda xl=xl, ol=ol, wl=wl: dc.deform_conv2d_cuda(xl, ol, wl), 10)
+        per.append(f"{tuple(xl.shape[1:3])} {t_l:.4f}")
+    say(f"   17a deform_conv2d at the scene's P3-P7 (bf16): {t_k:.3f} ms (spread {s_k:.1%}), "
+        f"bound {b[0]:.3f} ms ({b[1]}): {b[0] / t_k:.1%}; per level ms: {', '.join(per)}; "
+        f"{card}")
+    del pred, levels
+    torch.cuda.empty_cache()
+    return launches, {"spatial_ms": t_k, "spatial_bound_ms": b[0]}
+
+
+def phase_spatial(torch, dev, out_dir, scene=None):
+    """Section 17 of the module docstring; ``scene`` is phase 11's (made
+    again from its generator when None). Returns the launches of a spatial
+    scene and the AlignConv's times at its levels."""
+    say("== 17. spatial serving")
+    card = card_line()
+    work = out_dir / "spatial"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    if scene is None:
+        scene = write_eval_data(work / "eval", np.random.default_rng(SEED), 16, SCENE_HW)
+        shutil.rmtree(work / "eval", ignore_errors=True)
+    from s2anet_tpu_torch.config import load_config
+
+    full = load_config(str(ROOT / "configs" / "dota_r50.yaml"))
+    wfile = work / "weights.pt"
+    scale = spatial_weights(torch, dev, full.model, wfile)
+    say(f"   weights: seed {SEED}, the ODM class head's kernel times {scale:.1f} (a share "
+        f"{ODM_PASS:g} of a scene-like 1024^2 image's scores above 0.3)")
+    t0 = time.perf_counter()
+    spatial_cli_runs(torch, dev, work, wfile, full.data.names)
+    t1 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    halo_err = spatial_halo_card(torch, dev, gen, card)
+    t2 = time.perf_counter()
+    launches, times = spatial_one_process(torch, dev, scene, wfile, card)
+    say(f"   phase 17: b {t1 - t0:.1f} s, c {t2 - t1:.1f} s, a {time.perf_counter() - t2:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, dict(times, spatial_halo_max_abs_err=halo_err)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
     parser.add_argument("--out", default=str(ROOT / "runs" / "chip_smoke"),
@@ -3939,6 +4480,7 @@ def main(argv=None) -> int:
     try:
         phase_train_loop(torch, out_dir, train_summary["ms_per_step"])
         quant_rows = phase_quant(torch, dev, out_dir, eval_root, bf16_listed_rate, parent)
+        scene = np.load(eval_root / "scene" / "scene_0000.npy")  # for phase 17
     finally:
         shutil.rmtree(eval_root, ignore_errors=True)  # phase 11's 100 MB of images
     try:
@@ -3956,6 +4498,10 @@ def main(argv=None) -> int:
     finally:
         for d in ("dp", "dp_cli"):
             shutil.rmtree(out_dir / d, ignore_errors=True)
+    try:
+        spatial_launches, spatial_times = phase_spatial(torch, dev, out_dir, scene)
+    finally:
+        shutil.rmtree(out_dir / "spatial", ignore_errors=True)
 
     say(card)
     src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"
@@ -3967,8 +4513,9 @@ def main(argv=None) -> int:
              launches=train_launches["s2a_deform_conv2d_fwd"], path="train",
              eval_launches=eval_launches["s2a_deform_conv2d_fwd"],
              rect_launches=rect["s2a_deform_conv2d_fwd"],
+             spatial_launches=spatial_launches["s2a_deform_conv2d_fwd"],
              max_abs_err=deform_err, ms=t_dk, plain_ms=t_dp, bound_ms=fwd_bound[0],
-             bound_by=fwd_bound[1], library_ms=None, dense_conv_ms=dense_ms),
+             bound_by=fwd_bound[1], library_ms=None, dense_conv_ms=dense_ms, **spatial_times),
         dict(name="deform_conv2d_bwd", source=src_d,
              replaces="s2anet_tpu/ops/pallas/deform_kernel.py:263",
              launches=train_launches["s2a_deform_conv2d_bwd"], path="train", **deform_bwd),
@@ -3983,6 +4530,7 @@ def main(argv=None) -> int:
              launches=launches["s2a_nms_rotated_mask"], path="serve",
              eval_launches=eval_launches["s2a_nms_rotated_mask"],
              rect_launches=rect["s2a_nms_rotated_mask"],
+             spatial_launches=spatial_launches["s2a_nms_rotated_mask"],
              max_abs_err=float(mask_diff > 0), ms=t_mk, plain_ms=t_mp,
              bound_ms=m_bound[0], bound_by=m_bound[1], library_ms=None,
              clustered_ms=t_mc, clustered_bound_ms=c_bound[0]),
@@ -3991,6 +4539,7 @@ def main(argv=None) -> int:
              launches=launches["s2a_nms_rotated_sweep"], path="serve",
              eval_launches=eval_launches["s2a_nms_rotated_sweep"],
              rect_launches=rect["s2a_nms_rotated_sweep"],
+             spatial_launches=spatial_launches["s2a_nms_rotated_sweep"],
              max_abs_err=float(keep_diff > 0), ms=t_sk, plain_ms=t_sp,
              bound_ms=sweep_bound[0], bound_by=sweep_bound[1], library_ms=None,
              no_valid_ms=t_s0),

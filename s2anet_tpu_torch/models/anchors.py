@@ -3,7 +3,7 @@
 Base size = the level's stride; one anchor per cell by default (scale 4,
 ratio 1, angle 0); centres at ``0.5 * (stride - 1)`` past each cell origin.
 Rows are in (h, w) row-major order, the order the head flattens its NHWC
-outputs in.
+outputs in. ``row0`` (not in the JAX copy) starts the grid at a later row.
 """
 
 from __future__ import annotations
@@ -25,13 +25,16 @@ def base_anchors(base_size: float, scales=(4.0,), ratios=(1.0,),
 
 
 def grid_anchors(featmap_size, stride, scales=(4.0,), ratios=(1.0,),
-                 angles=(0.0,)) -> np.ndarray:
-    """``[H*W*A, 5]`` float32 anchors (x, y, w, h, theta) in image pixels."""
+                 angles=(0.0,), row0: int = 0) -> np.ndarray:
+    """``[H*W*A, 5]`` float32 anchors (x, y, w, h, theta) in image pixels.
+    ``row0``: the map's rows are rows ``row0 ..`` of a taller map (one
+    rank's rows of a height-sharded image), the same values as those rows
+    of the taller grid."""
     h, w = featmap_size
     base = base_anchors(float(stride), tuple(scales), tuple(ratios),
                         tuple(angles))
     xs = np.arange(w, dtype=np.float32) * stride + 0.5 * (stride - 1)
-    ys = np.arange(h, dtype=np.float32) * stride + 0.5 * (stride - 1)
+    ys = np.arange(row0, row0 + h, dtype=np.float32) * stride + 0.5 * (stride - 1)
     ctr = np.stack([np.tile(xs, h), np.repeat(ys, w)], axis=1)  # [H*W, 2]
     na = base.shape[0]
     anchors = np.concatenate(

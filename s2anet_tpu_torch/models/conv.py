@@ -3,7 +3,8 @@
 Training keeps float32 master parameters and computes in the input's type
 (bfloat16 in a bf16 run), as flax does for a conv given ``dtype``: the
 weight and bias are cast at use. When the parameters already have the
-input's type (a model cast for serving) the cast is a no-op.
+input's type (a model cast for serving) the cast is a no-op. On a
+height-sharded image (``parallel/rows.py``) it runs on the rank's rows.
 
 :func:`quantizable` turns such a conv into an int8-capable
 ``ops.quant.QuantConv2d`` in place, keeping its parameters: the detector
@@ -16,12 +17,14 @@ import torch
 from torch import nn
 
 from ..ops.quant import QuantConv2d
+from ..parallel import rows
 
 
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return rows.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                           self.dilation, self.groups)
 
 
 def quantizable(parent: nn.Module, key: str, range_slots: int = 1) -> QuantConv2d:

@@ -36,6 +36,12 @@ stacks (``head_stacks``), the prediction heads (``heads``) and the ORConv
 one activation range per FPN level, since their weights are shared across
 the levels. A quantised prediction head computes in its input's type, as
 the JAX ``QuantConv`` does. The AlignConv always stays float.
+
+On a height-sharded image (``parallel/rows.py``, spatial serving) the
+convs fetch their halo rows, the anchors and AlignConv offsets are those
+of the rank's rows of the whole image (absolute rows), and the AlignConv
+runs on a halo-extended or gathered block (``rows.deform_rows``, the
+counterpart of the JAX ``_spatial_hat``).
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ from ..ops.orn import rotate_arf, rotation_invariant_pooling
 from ..ops.quant import QuantMixin, call_conv
 from ..ops.rbox import rboxes_decode, rboxes_encode
 from ..ops.topk import top_k
-from ..parallel import mesh
+from ..parallel import mesh, rows
 from .anchors import grid_anchors
 from .assigner import assign_labels
 from .conv import Conv2d
@@ -116,10 +122,12 @@ class AlignConv(nn.Module):
     def forward(self, x_nhwc: torch.Tensor, anchors: torch.Tensor,
                 stride: int) -> torch.Tensor:
         _, h, w, _ = x_nhwc.shape
-        offsets = align_conv_offsets(anchors, (h, w), float(stride))
+        offsets = align_conv_offsets(anchors, (h, w), float(stride),
+                                     row0=rows.first_row(h))
         if self.offset_clamp > 0:
             offsets = offsets.clamp(-self.offset_clamp, self.offset_clamp)
-        return torch.relu(self.deform_conv(x_nhwc, offsets))
+        return torch.relu(rows.deform_rows(self.deform_conv, x_nhwc, offsets,
+                                           self.offset_clamp))
 
 
 class ORConv2d(nn.Module, QuantMixin):
@@ -141,7 +149,7 @@ class ORConv2d(nn.Module, QuantMixin):
 
     def float_forward(self, x: torch.Tensor) -> torch.Tensor:
         w = rotate_arf(self.weight, self.n_rot).to(x.dtype)
-        y = F.conv2d(x, w, padding=1)
+        y = rows.conv2d(x, w, None, 1, 1)
         return y + self.bias.to(x.dtype)[None, :, None, None]
 
     def forward(self, x: torch.Tensor, slot: int = 0) -> torch.Tensor:
@@ -212,12 +220,14 @@ class S2ANetHead(nn.Module):
         for m in (self.fam_cls_head, self.odm_cls_head):
             nn.init.constant_(m.bias, _bias_init_with_prob(0.01))
 
-    def level_anchors(self, h: int, w: int, stride: int, device) -> torch.Tensor:
-        """``[H*W*A, 5]`` float32 anchor grid of one level, cached."""
-        key = (h, w, stride, str(device))
+    def level_anchors(self, h: int, w: int, stride: int, device,
+                      row0: int = 0) -> torch.Tensor:
+        """``[H*W*A, 5]`` float32 anchor grid of one level from row
+        ``row0`` (of a height-sharded image), cached."""
+        key = (h, w, stride, str(device), row0)
         if key not in self._anchors:
             self._anchors[key] = torch.from_numpy(
-                grid_anchors((h, w), stride)).to(device)
+                grid_anchors((h, w), stride, row0=row0)).to(device)
         return self._anchors[key]
 
     @staticmethod
@@ -244,7 +254,7 @@ class S2ANetHead(nn.Module):
             fam_bbox = self._head(self.fam_reg_head, self.fam_reg_ls(x, lvl), lvl)
             fam_cls = self._head(self.fam_cls_head, self.fam_cls_ls(x, lvl), lvl)
 
-            anchors = self.level_anchors(h, w, stride, x.device)
+            anchors = self.level_anchors(h, w, stride, x.device, rows.first_row(h))
             # refined anchors carry no gradient: neither the ODM loss nor the
             # AlignConv offsets train the FAM regression branch
             refine = rboxes_decode(

@@ -3,7 +3,8 @@
 Counterpart of ``s2anet_tpu/models/resnet.py`` (``ResNetBackbone``,
 ``BasicBlock``, ``Bottleneck``). The JAX stem computes its 7x7/2 pad-3 conv
 through a space-to-depth rewrite, a TPU layout trick for the same math; here
-it is the plain conv. Max pool 3/2 pad 1.
+it is the plain conv. Max pool 3/2 pad 1. Convs and the pool run on the
+rank's rows of a height-sharded image (``parallel/rows.py``).
 
 In train mode a BatchNorm trains (``models/bn.py``) unless its stage is
 frozen or ``norm_eval`` is set, the JAX ``bn_train(stage)`` rule: the
@@ -28,6 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel import rows
 from .bn import BatchNorm2d
 from .conv import Conv2d
 
@@ -43,6 +45,14 @@ ARCH_SETTINGS = {
 def _downsample(cin, cout, stride):
     return nn.Sequential(Conv2d(cin, cout, 1, stride, bias=False),
                          BatchNorm2d(cout))
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` that runs on the rank's rows of a height-sharded
+    image."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rows.max_pool2d(x, self.kernel_size, self.stride, self.padding)
 
 
 def is_frozen_stage(stage: int, frozen_stages: int) -> bool:
@@ -124,7 +134,7 @@ class ResNet(nn.Module):
             planes *= 2
         self.backbone = nn.Sequential(
             stem,
-            nn.Sequential(nn.MaxPool2d(3, 2, 1), stages[0]),
+            nn.Sequential(MaxPool2d(3, 2, 1), stages[0]),
             *stages[1:],
         )
         for m in self.modules():

@@ -33,7 +33,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def align_conv_offsets(anchors: torch.Tensor, featmap_size, stride: float,
-                       kernel_size: int = 3) -> torch.Tensor:
+                       kernel_size: int = 3, row0: int = 0) -> torch.Tensor:
     """Deformable offsets that sample each refined anchor's rotated grid.
 
     The anchor's (w, h) are scaled down to the k x k window and the standard
@@ -44,6 +44,9 @@ def align_conv_offsets(anchors: torch.Tensor, featmap_size, stride: float,
       anchors: ``[B, H*W, 5]`` refined anchors (image pixels / radians).
       featmap_size: (H, W) of the level.
       stride: the level's downsample factor.
+      row0: the map's first row in a taller map (one rank's rows of a
+        height-sharded image): the offsets are those rows' of the taller
+        map, computed from the same absolute grid rows.
 
     Returns:
       ``[B, H, W, k*k, 2]`` (dy, dx) offsets.
@@ -56,7 +59,7 @@ def align_conv_offsets(anchors: torch.Tensor, featmap_size, stride: float,
     yy, xx = torch.meshgrid(idx, idx, indexing="ij")
     xx = xx.reshape(-1)
     yy = yy.reshape(-1)
-    yc, xc = torch.meshgrid(torch.arange(h, dtype=dtype, device=device),
+    yc, xc = torch.meshgrid(torch.arange(row0, row0 + h, dtype=dtype, device=device),
                             torch.arange(w, dtype=dtype, device=device),
                             indexing="ij")
     x_conv = xc.reshape(-1)[:, None] + xx[None, :]  # [H*W, k*k]

@@ -1,2 +1,4 @@
-"""Data-parallel training: the process group (:mod:`.mesh`) and the
-gradient sum of the train step (:mod:`.step`)."""
+"""Work over several processes: the process group (:mod:`.mesh`), the
+gradient sum of the data-parallel train step (:mod:`.step`), and spatial
+serving, one image's rows sharded over the ranks (:mod:`.rows`,
+:mod:`.spatial`)."""

@@ -1,4 +1,5 @@
-"""The process group of data-parallel training, one process a rank.
+"""The process group of data-parallel training and of spatial serving, one
+process a rank.
 
 Counterpart of ``s2anet_tpu/parallel/mesh.py``. The JAX package keeps one
 replicated state and shards each global batch over a mesh of devices; here
@@ -11,6 +12,11 @@ items (:mod:`.step`) and, for int8 calibration, the activation ranges
 global batch, and a checkpoint written by N ranks is one of the one-process
 trainer.
 
+Spatial serving (``parallel/spatial.py``, ``predict --mode spatial``)
+splits one image's rows over the ranks instead: :func:`halo_rows` fetches
+the neighbours' boundary rows around a convolution, :func:`gather_rows`
+puts a map back together whole.
+
 Without a group (``world_size() == 1``) none of this runs: a plain
 ``python -m s2anet_tpu_torch.train`` is one process on one GPU, with no
 collective.
@@ -18,7 +24,8 @@ collective.
 The backend follows from the machine: NCCL when each rank on a host has a
 GPU of its own, gloo when ranks share a GPU (or run on the CPU). Only
 ``all_reduce`` and ``broadcast`` are used, the two collectives both offer
-for CUDA tensors.
+for CUDA tensors; the row exchanges are all-reduces too (:func:`slots`),
+one code path for both backends.
 """
 
 from __future__ import annotations
@@ -131,3 +138,35 @@ def broadcast_one_to_all(value: float, device) -> float:
 def barrier(device) -> None:
     """Every rank reaches this point before any goes on (an all-reduce)."""
     all_reduce_sum(torch.zeros(1, device=device)).item()
+
+
+def slots(t: torch.Tensor) -> torch.Tensor:
+    """``[world, *t.shape]``: every rank's ``t``, in rank order. Each rank
+    writes its own slot of a zero buffer and an all-reduce sum fills in the
+    others: exact, since x + 0 = x (only the sign of a zero may change)."""
+    buf = t.new_zeros((world_size(),) + tuple(t.shape))
+    buf[rank()] = t
+    return all_reduce_sum(buf)
+
+
+def gather_rows(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole map from every rank's rows along ``dim`` (equal on every
+    rank), the ranks' rows in rank order."""
+    return torch.cat(slots(x).unbind(0), dim)
+
+
+def halo_rows(x: torch.Tensor, top: int, bottom: int, dim: int):
+    """``(above, below)``: the previous rank's last ``top`` rows along
+    ``dim`` and the next rank's first ``bottom`` rows; zeros past the
+    image's first and last rows (rank 0's above, the last rank's below).
+    Every rank holds as many rows, at least ``max(top, bottom)``."""
+    h = x.shape[dim]
+    if max(top, bottom) > h:
+        raise ValueError(f"halo of {top} + {bottom} rows from shards of {h}")
+    edges = slots(torch.cat([x.narrow(dim, h - top, top), x.narrow(dim, 0, bottom)], dim))
+    r, n = rank(), world_size()
+    above = (edges[r - 1].narrow(dim, 0, top) if r > 0
+             else x.new_zeros(x.shape[:dim] + (top,) + x.shape[dim + 1:]))
+    below = (edges[r + 1].narrow(dim, top, bottom) if r < n - 1
+             else x.new_zeros(x.shape[:dim] + (bottom,) + x.shape[dim + 1:]))
+    return above, below

@@ -1,31 +1,47 @@
 """Serve S2ANet on images of any size: ``python -m s2anet_tpu_torch.predict``.
 
-The PyTorch/CUDA counterpart of the repository's ``predict.py`` in chips
-mode (``--mode chips``, the default and for now the only mode): every
-input is tiled into ``--img-size`` windows overlapping by ``--gap``
-(:func:`.data.split.split_image`; an input no larger than one window is
-one zero-padded window), the windows run in fixed batches through the
-detector, decode and multiclass rotated NMS (each chip scaled by 1/255),
-and each input's detections are shifted back and merged by cross-chip
-polygon NMS at ``--iou-thres`` (:func:`.data.merge.merge_chip_detections`).
-Per input it writes ``<save-dir>/<name>.txt`` with one
-``class score x1 y1 x2 y2 x3 y3 x4 y4`` line per detection, prints one
-``<name>: N detections`` line, and ends with a JSON summary line (model and
-merge seconds apart).
+The PyTorch/CUDA counterpart of the repository's ``predict.py``, in its two
+modes:
+
+* ``--mode chips`` (the default): every input is tiled into ``--img-size``
+  windows overlapping by ``--gap`` (:func:`.data.split.split_image`; an
+  input no larger than one window is one zero-padded window), the windows
+  run in fixed batches of ``--batch-size`` through the detector, decode and
+  multiclass rotated NMS, and each input's detections are shifted back and
+  merged by cross-chip polygon NMS at ``--iou-thres``
+  (:func:`.data.merge.merge_chip_detections`).
+* ``--mode spatial``: each input runs whole, zero-padded to H a multiple of
+  128 x ranks and W a multiple of 128, with no tiling and no merge. One
+  process runs the whole image on one GPU; under ``torchrun
+  --nproc_per_node N`` the image's height is sharded over the N ranks
+  (:mod:`.parallel.spatial`: conv halos, the AlignConv halo, the outputs
+  gathered for one decode and NMS on rank 0). ``--gap``, ``--img-size``
+  and ``--batch-size`` belong to chips mode and are refused here, and so
+  is a quantised config: spatial mode is float, as in the repository's.
+
+Both modes scale the uint8 input as the repository's ``predict.py`` does,
+divided by 255 in float32 on the device, then cast to the compute type
+(``val`` and training multiply by float32(1/255), as the JAX loader does).
+Per input (rank 0 in spatial mode) it writes ``<save-dir>/<name>.txt``
+with one ``class score x1 y1 x2 y2 x3 y3 x4 y4`` line per detection, prints
+one ``<name>: N detections`` line, and ends with a JSON summary line
+(``mode``, ``ranks``, the model seconds apart from the merge's in chips
+mode or the decode's in spatial mode, and this process's launches of each
+serving kernel).
 
 Inputs: ``--source`` is a directory of ``.npy`` images (``[H, W, 3]``
-uint8 **RGB**, any size) or ``--synthetic N`` makes N random chips of
-``--img-size`` from ``--seed``. Weights: ``--weights`` takes an ``.npz`` of
-JAX-layout variables (:func:`.models.convert.save_jax_npz`), a port
-``state_dict`` (the trainer's ``weights/deploy``) or a training checkpoint
-(``weights/last``, ``best``, ``epochN``: its EMA weights, or its model's
-with ``--no-ema``); with none, the weights are random from ``--seed``.
-``--config`` reads a YAML config: ``--backbone``, ``--num-classes``,
-``--img-size``, ``--iou-thres`` and ``--names`` replace its values when
-typed, ``--conf`` defaults to its ``model.predict_score_thr`` (0.3), and
-the class names written are its names (``--names`` a preset).
+uint8 **RGB**, any size) or ``--synthetic N`` makes N random images of
+``--img-size`` (in spatial mode the config's window size) from ``--seed``.
+Weights: ``--weights`` takes an ``.npz`` of JAX-layout variables
+(:func:`.models.convert.save_jax_npz`), a port ``state_dict`` (the
+trainer's ``weights/deploy``) or a training checkpoint (``weights/last``,
+``best``, ``epochN``: its EMA weights, or its model's with ``--no-ema``);
+with none, the weights are random from ``--seed``. ``--config`` reads a
+YAML config: ``--backbone``, ``--num-classes``, ``--img-size``,
+``--iou-thres`` and ``--names`` replace its values when typed, ``--conf``
+defaults to its ``model.predict_score_thr`` (0.3), and the class names
+written are its names (``--names`` a preset).
 
-Not yet here: ``--mode spatial`` (the whole image, sharded by height).
 int8 serving (``ModelConfig.quant``) runs through ``python -m
 s2anet_tpu_torch.val --quant int8``, which calibrates on its first
 batches; like the repository's ``predict.py``, this CLI has no ``--quant``.
@@ -43,6 +59,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import native
 from .config import ModelConfig, load_config, prune_overrides
@@ -53,10 +70,20 @@ from .models.convert import load_jax_npz, state_dict_from_jax
 from .models.detector import S2ANet
 from .models.fold import fold_bn
 from .models.head import s2anet_get_bboxes
-from .ops.quant import calibrate, parse_scope
+from .ops.deform_conv import DEFORM_FWD
+from .ops.nms_rotated import NMS_MASK, NMS_SWEEP
+from .ops.quant import CONV, QUANTIZE, calibrate, parse_scope
+from .parallel import mesh
+from .parallel.spatial import padded_size, spatial_forward
 from .train.step import scale_images
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+KERNELS = (DEFORM_FWD, NMS_MASK, NMS_SWEEP, QUANTIZE, CONV)  # the serving path's
+# cuDNN autotuning by mode. Chips mode runs one batch shape. Spatial mode
+# meets a new shape with nearly every scene size, where autotuning costs
+# seconds on an H100 and buys no faster repeat scene (chip_smoke phase 17a
+# times both)
+CUDNN_BENCHMARK = {"chips": True, "spatial": False}
 
 
 def load_state_dict(path: str, arch: str, use_ema: bool = True):
@@ -90,11 +117,16 @@ class S2ANetPredictor:
     first) are set to calibrate before the cast, so their float32 weights
     stay; :meth:`calibrate` then records the activation ranges over the
     batches it is given and switches them to int8. Until then ``predict``
-    raises."""
+    raises.
+
+    ``divide``: scale the uint8 input by a division by 255 in float32 (the
+    repository's ``predict.py``); else by the product with float32(1/255)
+    (the JAX loader's, for ``val``). The two differ by one ulp on 126 of
+    the 256 levels."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), weights: str = "",
                  device: str = "cuda", dtype: torch.dtype = torch.bfloat16,
-                 seed: int = 0, use_ema: bool = True):
+                 seed: int = 0, use_ema: bool = True, divide: bool = False):
         if cfg.quant not in ("none", "int8"):
             raise ValueError(f"quant {cfg.quant!r}: expected none | int8")
         self.scope = parse_scope(cfg.quant_scope)
@@ -103,6 +135,7 @@ class S2ANetPredictor:
             raise RuntimeError(f"--device {device}: no CUDA device")
         self.cfg = cfg
         self.dtype = dtype
+        self.divide = divide
         model = S2ANet.from_config(cfg)
         if weights:
             model.load_state_dict(load_state_dict(weights, cfg.backbone, use_ema))
@@ -134,9 +167,9 @@ class S2ANetPredictor:
 
     def to_input(self, imgs) -> torch.Tensor:
         """``[B, H, W, 3]`` uint8 RGB (numpy or tensor) -> ``[B, 3, H, W]``
-        in the compute type, scaled by float32(1/255) as the JAX loader
-        scales, channels-last on the device."""
-        return scale_images(torch.as_tensor(imgs).to(self.device), self.dtype)
+        in the compute type, scaled on the device (see ``divide``),
+        channels-last."""
+        return scale_images(torch.as_tensor(imgs).to(self.device), self.dtype, self.divide)
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor):
@@ -233,14 +266,58 @@ def serve_chips(predictor, inputs, img_size: int, gap: int, batch_size: int,
             t0 = time.perf_counter()
 
 
+@torch.no_grad()
+def serve_spatial(predictor, inputs, timing=None):
+    """Each input whole, its height sharded over the group's ranks (one
+    rank: the whole image): yields ``(name, dets)`` per input, in input
+    order, ``dets`` a list of ``(class_id, score, poly[8])`` in the input's
+    frame on rank 0 and None on the other ranks. Every rank reads every
+    input and stages its own rows of the padded image (zeros past the
+    input); rank 0 decodes. ``timing`` (a dict), when given, gathers the
+    seconds of the model (rows staged, the forward, the outputs gathered,
+    to the device's end) and of the decode (top-k, NMS, polygons)."""
+    timing = {} if timing is None else timing
+    timing.setdefault("model", 0.0)
+    timing.setdefault("decode", 0.0)
+    world, rank = mesh.world_size(), mesh.rank()
+    cuda = predictor.device.type == "cuda"
+    for name, img in inputs:
+        h0, w0 = img.shape[:2]
+        hp, wp = padded_size(h0, w0, world)
+        part = hp // world
+        lo, hi = rank * part, min((rank + 1) * part, h0)
+        rows_u8 = np.zeros((1, part, wp, 3), np.uint8)
+        rows_u8[0, :max(hi - lo, 0), :w0] = img[lo:hi]
+        t0 = time.perf_counter()
+        out = spatial_forward(predictor.forward, predictor.to_input(rows_u8))
+        if cuda:
+            torch.cuda.synchronize(predictor.device)
+        t1 = time.perf_counter()
+        timing["model"] += t1 - t0
+        if rank != 0:
+            yield name, None
+            continue
+        det_boxes, det_labels, det_valid = (
+            t[0].cpu().numpy() for t in s2anet_get_bboxes(out, **predictor.post_kwargs()))
+        polys, scores = detections_to_polys(det_boxes, det_valid)
+        dets = [(int(c), float(sc), p)
+                for c, sc, p in zip(det_labels[det_valid], scores, polys)]
+        timing["decode"] += time.perf_counter() - t1
+        yield name, dets
+
+
+CHIPS_ONLY = {"gap": 200, "img_size": None, "batch_size": 8}  # chips-mode flags, defaults
+
+
 def parse_opt(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--source", help="directory of [H,W,3] uint8 RGB .npy images")
     src.add_argument("--synthetic", type=int, default=0,
                      help="make N random chips from --seed")
-    p.add_argument("--mode", choices=["chips"], default="chips",
-                   help="chips: tile, detect per window, merge")
+    p.add_argument("--mode", choices=["chips", "spatial"], default="chips",
+                   help="chips: tile, detect per window, merge; spatial: each image "
+                        "whole, its height sharded over torchrun's ranks")
     p.add_argument("--weights", default="",
                    help=".npz of JAX variables or .pt port state_dict; "
                         "none = random weights from --seed")
@@ -254,9 +331,12 @@ def parse_opt(argv=None):
                    help="class preset: dota | dota-v1.5 | dota-v2.0 | hrsc")
     p.add_argument("--no-ema", action="store_true",
                    help="a training checkpoint's model weights, not its EMA")
-    p.add_argument("--batch-size", type=int, default=8, help="windows per batch")
-    p.add_argument("--img-size", type=int, default=None, help="window size (default 1024)")
-    p.add_argument("--gap", type=int, default=200, help="window overlap")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="windows per batch (chips mode, default 8)")
+    p.add_argument("--img-size", type=int, default=None,
+                   help="window size (chips mode, default 1024)")
+    p.add_argument("--gap", type=int, default=None,
+                   help="window overlap (chips mode, default 200)")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
     p.add_argument("--device", default="cuda")
     p.add_argument("--conf", type=float, default=None,
@@ -264,7 +344,15 @@ def parse_opt(argv=None):
     p.add_argument("--iou-thres", type=float, default=None,
                    help="NMS threshold, also of the cross-chip merge")
     p.add_argument("--save-dir", default="runs/predict_torch")
-    return p.parse_args(argv)
+    opt = p.parse_args(argv)
+    typed = [k for k in CHIPS_ONLY if getattr(opt, k) is not None]
+    if opt.mode == "spatial" and typed:
+        p.error(", ".join("--" + k.replace("_", "-") for k in typed)
+                + ": chips mode only (spatial mode runs each image whole)")
+    for k, default in CHIPS_ONLY.items():
+        if getattr(opt, k) is None and default is not None:
+            setattr(opt, k, default)
+    return opt
 
 
 def main(argv=None) -> dict:
@@ -276,36 +364,58 @@ def main(argv=None) -> dict:
     cfg = full.model
     cfg = dataclasses.replace(
         cfg, score_thr=opt.conf if opt.conf is not None else cfg.predict_score_thr)
+    spatial = opt.mode == "spatial"
+    if spatial and cfg.quant != "none":
+        raise ValueError(f"--mode spatial is float only: the config sets quant {cfg.quant!r}")
     opt.img_size = full.data.img_size
-    # the window slide img_size - gap stays positive
-    gap = min(opt.gap, opt.img_size // 2)
     names = full.data.names
-    predictor = S2ANetPredictor(cfg, opt.weights, opt.device, DTYPES[opt.dtype],
+    ours = spatial and not dist.is_initialized()  # a group this call joins, it leaves
+    device = mesh.maybe_initialize_distributed(device=opt.device) if spatial else opt.device
+    main_rank = mesh.is_main_process()
+    predictor = S2ANetPredictor(cfg, opt.weights, device, DTYPES[opt.dtype],
                                 opt.seed, use_ema=not opt.no_ema)
-    torch.backends.cudnn.benchmark = True  # fixed shapes: autotune the convs
+    predictor.divide = True  # the repository's predict.py scaling
+    torch.backends.cudnn.benchmark = CUDNN_BENCHMARK[opt.mode]
     save_dir = Path(opt.save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    if main_rank:
+        save_dir.mkdir(parents=True, exist_ok=True)
 
     n_images = n_chips = n_dets = 0
     timing: dict = {}
+    counts = {k.symbol: k.launches for k in KERNELS}
     t0 = time.perf_counter()
-    for name, n_windows, dets in serve_chips(
-            predictor, _inputs(opt), opt.img_size, gap, opt.batch_size,
-            cfg.nms_iou_thr, timing):
+    if spatial:
+        served = ((name, 1, dets) for name, dets in serve_spatial(predictor, _inputs(opt), timing))
+    else:
+        # the window slide img_size - gap stays positive
+        served = serve_chips(predictor, _inputs(opt), opt.img_size,
+                             min(opt.gap, opt.img_size // 2), opt.batch_size,
+                             cfg.nms_iou_thr, timing)
+    for name, n_windows, dets in served:
+        n_images += 1
+        n_chips += n_windows
+        if not main_rank:
+            continue
         lines = [f"{names[c]} {s:.4f} " + " ".join(f"{v:.2f}" for v in poly)
                  for c, s, poly in dets]
         (save_dir / f"{name}.txt").write_text("".join(l + "\n" for l in lines))
         print(f"{name}: {len(lines)} detections")
-        n_images += 1
-        n_chips += n_windows
         n_dets += len(lines)
-    summary = {"images": n_images, "chips": n_chips, "detections": n_dets,
-               "seconds": round(time.perf_counter() - t0, 3),
-               "model_seconds": round(timing["model"], 3),
-               "merge_seconds": round(timing["merge"], 3),
-               "native_polyiou": native.AVAILABLE,
-               "device": str(predictor.device), "save_dir": str(save_dir)}
-    print(json.dumps(summary))
+    summary = {"mode": opt.mode, "ranks": mesh.world_size(), "images": n_images}
+    if not spatial:
+        summary["chips"] = n_chips
+    summary.update({"detections": n_dets,
+                    "seconds": round(time.perf_counter() - t0, 3),
+                    "model_seconds": round(timing["model"], 3)})
+    second = "decode" if spatial else "merge"
+    summary[f"{second}_seconds"] = round(timing[second], 3)
+    summary["launches"] = {k.symbol: k.launches - counts[k.symbol] for k in KERNELS}
+    summary.update({"native_polyiou": native.AVAILABLE,
+                    "device": str(predictor.device), "save_dir": str(save_dir)})
+    if main_rank:
+        print(json.dumps(summary))
+    if ours:
+        mesh.shutdown()
     return summary
 
 

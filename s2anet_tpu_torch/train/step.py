@@ -35,11 +35,15 @@ GT_TIER = 64
 INV255 = float(np.float32(1.0 / 255.0))
 
 
-def scale_images(imgs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def scale_images(imgs: torch.Tensor, dtype: torch.dtype, divide: bool = False) -> torch.Tensor:
     """uint8 RGB ``[B, H, W, 3]`` -> ``[B, 3, H, W]`` channels-last in
-    ``dtype``: times float32(1/255) in float32, then cast."""
-    return imgs.float().mul_(INV255).to(dtype).permute(0, 3, 1, 2).contiguous(
-        memory_format=torch.channels_last)
+    ``dtype``: times float32(1/255) in float32, then cast; with ``divide``,
+    divided by 255 in float32 instead (the repository's ``predict.py``).
+    The divisor is a tensor on the images' device: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal."""
+    x = imgs.float()
+    x = x.div_(torch.full((), 255.0, device=x.device)) if divide else x.mul_(INV255)
+    return x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
 
 def to_device(batch, device, dtype: torch.dtype, imgs: torch.Tensor = None):

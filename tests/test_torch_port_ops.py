@@ -166,7 +166,8 @@ def test_port_imports_no_jax():
             "checkpoint.py", "pretrained.py", "yaml_lite.py", "config.py", "augment.py",
             "dota.py", "synth.py", "callbacks.py", "loggers.py",
             "runner.py", "quant.py", "conv.py", "convert.py"} <= {f.name for f in files}
-    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/step.py"} <= {
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/step.py",
+            "parallel/rows.py", "parallel/spatial.py"} <= {
         f"{f.parent.name}/{f.name}" for f in files}
     banned = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "s2anet_tpu")
     for f in files:
@@ -181,8 +182,8 @@ def test_wrappers_have_no_try():
     files = sorted(PORT.rglob("*.py"))
     assert {"moments.py", "bn.py", "step.py", "__main__.py", "trainer.py",
             "loggers.py", "quant.py"} <= {f.name for f in files}
-    assert {"parallel/mesh.py", "parallel/step.py"} <= {f"{f.parent.name}/{f.name}"
-                                                        for f in files}
+    assert {"parallel/mesh.py", "parallel/step.py", "parallel/rows.py",
+            "parallel/spatial.py"} <= {f"{f.parent.name}/{f.name}" for f in files}
     for f in files:
         tree = ast.parse(f.read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), f
