@@ -298,6 +298,24 @@ last line:
                to the model's forward's on the padded scene name for name
                (profiler), and the AlignConv kernel's time at the scene's
                P3-P7 against its bound
+ 18. images    the image-file and dataset-preparation path, without cv2 or
+               PIL: two 1500x2000 DOTA-layout scenes written as PNG (the
+               five row filters in turn, encoded in NumPy) with their
+               labelTxt; data/image.py reads one back to its pixels (MB/s
+               of the whole read, of the C++ unfilter and of zlib's inflate
+               alone); python -m s2anet_tpu_torch.tools.prepare_dota --rates
+               0.5 1.0 (4 workers): chips per split equal to window_origins',
+               no sidecar, and one scene's split seconds at each rate in one
+               process; val on val_split.txt with every chip read by
+               data/image.py; predict on the PNG scenes with --save-img
+               (R-50, bf16, score_thr 0.005, cudnn deterministic), its
+               <name>.txt and the 15 Task1 files byte-equal to predict
+               --npy on the same RGB pixels in this process, launches a
+               batch (AlignConv 5, NMS mask and sweep 1), the drawn PNGs
+               decoding at the scene's size; nms_rotated / ml_nms_rotated
+               on 4096 clustered candidates with tied scores (valid all,
+               70%, none) equal to the plain keep, one mask and one sweep
+               launch a call
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path (training, or serving for the NMS kernels, ``val --quant int8``
@@ -307,7 +325,8 @@ kernels on that path; ``rect_launches``: the ``val --rect`` run of phase 14,
 train step of each configuration of phase 15; ``dp_launches``: a step of
 phase 16a on rank 0, which is the fused finishing kernels' path; ``spatial_launches``:
 a 3072x4096 scene of phase 17a, with the AlignConv's time at its levels
-beside), its largest error
+beside; ``image_launches``: a batch of phase 18's predict on PNG scenes), its
+largest error
 against the plain version, its time, the plain version's and the library
 call's time where there is one, and the least time the card could take
 (``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
@@ -1361,7 +1380,7 @@ def phase_eval(torch, dev, out_dir, keep: bool = False):
             f"run: {loop_split(sorted(outs, key=lambda o: o['images_per_sec'])[TURNS // 2])}")
     del pred
 
-    args = ["--source", str(root / "scene"), "--batch-size", str(BATCH), "--conf", "0.005",
+    args = ["--source", str(root / "scene"), "--npy", "--batch-size", str(BATCH), "--conf", "0.005",
             "--gap", str(gap), "--seed", str(SEED), "--save-dir", str(root / "predict")]
     say(f"   python -m s2anet_tpu_torch.predict {' '.join(args)}")
     summary = port_predict.main(args)
@@ -3737,7 +3756,7 @@ def spatial_cli_runs(torch, dev, work: Path, wfile: Path, names):
         save = work / f"b_{dtype}_{clamp:g}"
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
                str(SPATIAL_RANKS), "-m", "s2anet_tpu_torch.predict", "--mode", "spatial",
-               "--source", str(work / "b_src"), "--config", str(configs[clamp]),
+               "--source", str(work / "b_src"), "--npy", "--config", str(configs[clamp]),
                "--seed", str(SEED), "--dtype", dtype, "--conf", repr(thr[(dtype, clamp)]),
                "--save-dir", str(save)] + (["--weights", weights] if weights else [])
         say(f"   {' '.join(cmd[2:])}")
@@ -3973,6 +3992,200 @@ def phase_spatial(torch, dev, out_dir, scene=None):
     say(f"   phase 17: b {t1 - t0:.1f} s, c {t2 - t1:.1f} s, a {time.perf_counter() - t2:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
     return launches, dict(times, spatial_halo_max_abs_err=halo_err)
+
+
+IMAGE_HW = (1500, 2000)  # phase 18: the scenes' height and width
+IMAGE_RATES = (0.5, 1.0)  # phase 18: prepare_dota's rates
+
+
+def image_scene(rng, png: Path, label: Path):
+    """A DOTA-layout scene (RGB noise with filled rotated rectangles) as a
+    PNG that uses the five row filters in turn, and its ``labelTxt`` (a
+    seventh of the objects difficult); returns the RGB pixels."""
+    from s2anet_tpu_torch.config import DOTA10_CLASSES
+    from s2anet_tpu_torch.data.synth import write_png
+    from s2anet_tpu_torch.ops.polyiou import rbox_vertices_np
+
+    img = rng.integers(0, 90, IMAGE_HW + (3,), dtype=np.uint8)
+    boxes, classes = draw_objects(rng, img, 60)
+    write_png(png, img, filters=np.arange(IMAGE_HW[0]) % 5)
+    polys = rbox_vertices_np(boxes).reshape(-1, 8)
+    label.write_text("imagesource:synthetic\ngsd:0.5\n" + "".join(
+        " ".join(f"{v:.1f}" for v in p) + f" {DOTA10_CLASSES[c]} {int(i % 7 == 0)}\n"
+        for i, (c, p) in enumerate(zip(classes, polys))))
+    return img
+
+
+def phase_images(torch, dev, out_dir):
+    """Section 18 of the module docstring. Returns the launches of a
+    ``predict`` batch on image files and the phase's numbers."""
+    say("== 18. image files")
+    import zlib
+
+    from s2anet_tpu_torch import native
+    from s2anet_tpu_torch import predict as port_predict
+    from s2anet_tpu_torch import val as port_val
+    from s2anet_tpu_torch.data import image as image_mod
+    from s2anet_tpu_torch.data import split
+    from s2anet_tpu_torch.ops import deform_conv as dc
+    from s2anet_tpu_torch.ops import nms_rotated as nms
+
+    card = card_line()
+    work = out_dir / "images"
+    shutil.rmtree(work, ignore_errors=True)
+    src, scenes = work / "src", work / "scenes"
+    scenes.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 18)
+    rgbs = {}
+    for k, s in enumerate(("train", "val")):
+        (src / s / "images").mkdir(parents=True)
+        (src / s / "labelTxt").mkdir()
+        png = src / s / "images" / f"P{k:04d}.png"
+        rgbs[png.stem] = image_scene(rng, png, src / s / "labelTxt" / f"P{k:04d}.txt")
+        shutil.copyfile(png, scenes / png.name)
+
+    # the reader: the scene's pixels back, and its rate with the C++ unfilter
+    png = scenes / "P0000.png"
+    data = png.read_bytes()
+    (w, h, _, _), _, raw, row_bytes, bpp = image_mod.png_stream(data)
+    filters = set(raw.reshape(h, row_bytes + 1)[:, 0].tolist())
+    idat, _ = image_mod.png_chunks(data)
+    t_read, t_inflate, t_unfilter = [], [], []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        got = image_mod.imread(png)
+        t1 = time.perf_counter()
+        zlib.decompress(idat)
+        t2 = time.perf_counter()
+        native.png_unfilter(raw, h, row_bytes, bpp)
+        t_read.append(t1 - t0)
+        t_inflate.append(t2 - t1)
+        t_unfilter.append(time.perf_counter() - t2)
+    mb = h * w * 3 / 1e6
+    rates = {name: mb / float(np.median(t)) for name, t in
+             (("read", t_read), ("inflate", t_inflate), ("unfilter", t_unfilter))}
+    check(native.AVAILABLE and filters == {0, 1, 2, 3, 4}
+          and np.array_equal(got[:, :, ::-1], rgbs["P0000"]),
+          f"data/image.py reads the {h}x{w} scene (row filters {sorted(filters)}) to its "
+          f"pixels: {rates['read']:.1f} MB/s of pixels (C++ unfilter alone "
+          f"{rates['unfilter']:.1f} MB/s, zlib inflate alone {rates['inflate']:.1f} MB/s; "
+          f"median of {REPEATS}, host)")
+
+    # prepare_dota: split at the rates (a process pool), convert, list
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "s2anet_tpu_torch.tools.prepare_dota", "--src", str(src),
+         "--out", str(work / "prep"), "--subsize", str(SIZE), "--gap", "200",
+         "--rates", *map(str, IMAGE_RATES), "--workers", "4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    t_prep = time.perf_counter() - t0
+    check(proc.returncode == 0, f"prepare_dota: exit {proc.returncode} "
+          f"(stderr tail: {proc.stderr[-600:]!r})")
+    want = sum(len(split.window_origins(int(round(IMAGE_HW[0] * r)), int(round(IMAGE_HW[1] * r)),
+                                        SIZE, SIZE - 200)) for r in IMAGE_RATES)
+    for s in ("train", "val"):
+        d = work / "prep" / f"{s}_split"
+        chips = sorted(p.name for p in (d / "images").iterdir())
+        labels = sorted(p.name for p in (d / "labels").iterdir())
+        check(len(chips) == want and f"{s}: {want} chips" in proc.stdout
+              and not any(c.endswith(".npy") for c in chips)
+              and (s == "train" or len(labels) == want),
+              f"prepare_dota --rates {' '.join(map(str, IMAGE_RATES))}: {s} {len(chips)} PNG "
+              f"chips (window_origins: {want}), {len(labels)} label files, no sidecar")
+    split_s = {}
+    for r in IMAGE_RATES:
+        tmp = work / f"split_{r}"
+        (tmp / "images").mkdir(parents=True)
+        (tmp / "labelTxt").mkdir()
+        t0 = time.perf_counter()
+        n = split._split_one((png, src / "train" / "labelTxt" / "P0000.txt", tmp / "images",
+                              tmp / "labelTxt", SIZE, 200, r, 0.5, ".png"))
+        split_s[r] = time.perf_counter() - t0
+        shutil.rmtree(tmp)
+    say(f"   split of one {h}x{w} scene, one process: " + ", ".join(
+        f"rate {r}: {t:.2f} s" for r, t in split_s.items())
+        + f"; prepare_dota (2 scenes x {len(IMAGE_RATES)} rates, 4 workers, "
+        f"process start included) {t_prep:.2f} s")
+
+    # val on the val list: every chip decoded by data/image.py
+    decoded = []
+    real_read = image_mod.read_png
+
+    def read_png(data, name="PNG"):
+        decoded.append(Path(name).name)
+        return real_read(data, name)
+
+    listed = [Path(x).name for x in
+              (work / "prep" / "val_split.txt").read_text().splitlines()]
+    with mock.patch.object(image_mod, "read_png", read_png):
+        res = port_val.main(["--data-root", str(work / "prep" / "val_split.txt"),
+                             "--batch-size", str(BATCH), "--img-size", str(SIZE),
+                             "--save-dir", str(work / "val")])
+    check(res["n_images"] == len(listed) == want and sorted(set(decoded)) == sorted(listed),
+          f"val on val_split.txt: {res['n_images']} chips, each read by data/image.py "
+          f"({len(decoded)} decodes), map50 {res['map50']:.4f} (random weights)")
+
+    # predict on the PNG scenes (--save-img) and with --npy on their RGB pixels
+    (work / "npy").mkdir()
+    for name, rgb in rgbs.items():
+        np.save(work / "npy" / f"{name}.npy", rgb)
+    kernels = (dc.DEFORM_FWD, nms.NMS_MASK, nms.NMS_SWEEP)
+    common = ["--batch-size", str(BATCH), "--conf", "0.005", "--seed", str(SEED)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    s_png = port_predict.main(["--source", str(scenes), "--save-img",
+                               "--save-dir", str(work / "pred_png"), *common])
+    t_png = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    s_npy = port_predict.main(["--source", str(work / "npy"), "--npy",
+                               "--save-dir", str(work / "pred_npy"), *common])
+    torch.backends.cudnn.deterministic = deterministic
+    batches = -(-s_png["chips"] // BATCH)
+    per_batch = {sym: n / batches for sym, n in launches.items()}
+    check(per_batch == {"s2a_deform_conv2d_fwd": 5, "s2a_nms_rotated_mask": 1,
+                        "s2a_nms_rotated_sweep": 1},
+          f"predict on {s_png['images']} PNG scenes: {s_png['chips']} windows in {batches} "
+          f"batches, launches {launches} ({per_batch} a batch)")
+    same = all((work / "pred_png" / f"{n}.txt").read_bytes()
+               == (work / "pred_npy" / f"{n}.txt").read_bytes() for n in rgbs)
+    task1 = sorted((work / "pred_png" / "dota_submission").glob("Task1_*.txt"))
+    n_task1 = sum(len(f.read_text().splitlines()) for f in task1)
+    same_task1 = all(f.read_bytes() == (work / "pred_npy" / "dota_submission" / f.name)
+                     .read_bytes() for f in task1)
+    check(same and same_task1 and len(task1) == 15 and n_task1 == s_png["detections"] > 0,
+          f"predict: {s_png['detections']} detections, each scene's lines and the 15 Task1 "
+          f"files byte-equal to --npy on the same RGB pixels ({s_npy['detections']}); "
+          f"{t_png:.1f} s with --save-img (model {s_png['model_seconds']:.3f} s, merge "
+          f"{s_png['merge_seconds']:.3f} s)")
+    drawn = {n: image_mod.imread(work / "pred_png" / f"{n}.png") for n in rgbs}
+    check(all(d.shape == IMAGE_HW + (3,) and (d[:, :, ::-1] != rgbs[n]).any()
+              for n, d in drawn.items()),
+          f"--save-img: {len(drawn)} PNGs decode at {IMAGE_HW[0]}x{IMAGE_HW[1]}, boxes drawn")
+
+    # the single-class entry points on the card against the plain keep
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    boxes, labels, valid = (t[0] for t in clustered_candidates(torch, gen, 1, 4096, dev))
+    scores = torch.randint(0, 20, (4096,), generator=gen, device=dev).float() / 20  # ties
+    scattered = torch.rand(4096, generator=gen, device=dev) < 0.7
+    for vname, v in (("all", None), ("70%", scattered), ("none", torch.zeros_like(valid))):
+        for fname, fn in (("nms_rotated", lambda v: nms.nms_rotated(boxes, scores, 0.5, v)),
+                          ("ml_nms_rotated",
+                           lambda v: nms.ml_nms_rotated(boxes, scores, labels, 0.5, v))):
+            before = [k.launches for k in kernels[1:]]
+            keep = fn(v)
+            torch.cuda.synchronize()
+            once = [k.launches - b for k, b in zip(kernels[1:], before)] == [1, 1]
+            with mock.patch.object(nms, "nms_keep", nms.nms_keep_plain):
+                ref = fn(v)
+            check(once and torch.equal(keep, ref) and keep.is_cuda,
+                  f"{fname}, 4096 clustered candidates, valid {vname}: keeps equal to the "
+                  f"plain keep's ({int(keep.sum())} kept), mask and sweep launched once")
+    say(f"   phase 18 numbers beside {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    return per_batch
 
 
 def main(argv=None) -> int:
@@ -4502,6 +4715,10 @@ def main(argv=None) -> int:
         spatial_launches, spatial_times = phase_spatial(torch, dev, out_dir, scene)
     finally:
         shutil.rmtree(out_dir / "spatial", ignore_errors=True)
+    try:
+        image_launches = phase_images(torch, dev, out_dir)
+    finally:
+        shutil.rmtree(out_dir / "images", ignore_errors=True)
 
     say(card)
     src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"
@@ -4514,6 +4731,7 @@ def main(argv=None) -> int:
              eval_launches=eval_launches["s2a_deform_conv2d_fwd"],
              rect_launches=rect["s2a_deform_conv2d_fwd"],
              spatial_launches=spatial_launches["s2a_deform_conv2d_fwd"],
+             image_launches=image_launches["s2a_deform_conv2d_fwd"],
              max_abs_err=deform_err, ms=t_dk, plain_ms=t_dp, bound_ms=fwd_bound[0],
              bound_by=fwd_bound[1], library_ms=None, dense_conv_ms=dense_ms, **spatial_times),
         dict(name="deform_conv2d_bwd", source=src_d,
@@ -4531,6 +4749,7 @@ def main(argv=None) -> int:
              eval_launches=eval_launches["s2a_nms_rotated_mask"],
              rect_launches=rect["s2a_nms_rotated_mask"],
              spatial_launches=spatial_launches["s2a_nms_rotated_mask"],
+             image_launches=image_launches["s2a_nms_rotated_mask"],
              max_abs_err=float(mask_diff > 0), ms=t_mk, plain_ms=t_mp,
              bound_ms=m_bound[0], bound_by=m_bound[1], library_ms=None,
              clustered_ms=t_mc, clustered_bound_ms=c_bound[0]),
@@ -4540,6 +4759,7 @@ def main(argv=None) -> int:
              eval_launches=eval_launches["s2a_nms_rotated_sweep"],
              rect_launches=rect["s2a_nms_rotated_sweep"],
              spatial_launches=spatial_launches["s2a_nms_rotated_sweep"],
+             image_launches=image_launches["s2a_nms_rotated_sweep"],
              max_abs_err=float(keep_diff > 0), ms=t_sk, plain_ms=t_sp,
              bound_ms=sweep_bound[0], bound_by=sweep_bound[1], library_ms=None,
              no_valid_ms=t_s0),

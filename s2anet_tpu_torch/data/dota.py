@@ -8,17 +8,18 @@ size, and padded targets ``gt_boxes [B, G, 5]``, ``gt_classes [B, G]``,
 ``gt_mask [B, G]``.
 
 **Image sources.** The machine with the card has no cv2 and may have no
-PIL, so images come decoded, in the two forms the JAX package writes:
+PIL. An image is read, in this order, from:
 
-  * the ``.npy`` sidecar beside each image (the JAX package's
+  * the packed shard ``images.pack.bin`` (``cache_images="packed"``;
+    :mod:`.packed_cache`), the JAX package's format;
+  * the ``.npy`` sidecar beside the image (the JAX package's
     ``cache_images="disk"``), served only when it is newer than the image
     (``cache_images=""`` here);
-  * the packed shard ``images.pack.bin`` (``cache_images="packed"``;
-    :mod:`.packed_cache`).
+  * the image file itself: a PNG or BMP by :mod:`.image` (cv2's pixels),
+    any other format by PIL where PIL is installed; otherwise it raises.
 
-Both hold **BGR** uint8 (they are ``cv2.imread`` output). An image file
-without a fresh sidecar is decoded only where PIL is installed; otherwise it
-raises. Labels are read from the txt files; no label cache is written.
+All give **BGR** uint8 (``cv2.imread`` output). Labels are read from the
+txt files; no label cache is written.
 
 **Training** (``augment=True``): the 4-image mosaic and its centre crop,
 mixup, the scale / translate warp, the HSV jitter, 90-degree rotations and
@@ -53,7 +54,6 @@ it; a side can exceed ``S`` by one stride (:meth:`BatchLoader._img_capacity`).
 from __future__ import annotations
 
 import contextlib
-import importlib.util
 import itertools
 import mmap
 import multiprocessing as mp
@@ -69,10 +69,10 @@ import torch
 
 from ..ops.rbox import poly_to_rbox_np
 from . import augment as A
+from . import image
 from .packed_cache import PackedImageCache, _content_key
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
-HAVE_PIL = importlib.util.find_spec("PIL") is not None
 CACHE_MODES = ("", "packed")
 LOADER_MODES = ("thread", "process")
 PAD_VALUE = 114  # letterbox border
@@ -108,22 +108,16 @@ def _img2label(img_path: Path) -> Path:
 
 
 def decode_image(path) -> np.ndarray:
-    """Decode an image file to BGR uint8 with PIL (as ``cv2.imread`` gives
-    it); raises where PIL is absent."""
-    if not HAVE_PIL:
-        raise FileNotFoundError(
-            f"{path}: no decoded form of this image. Without PIL the port reads "
-            f"the BGR .npy sidecar beside the image (newer than it) or a packed "
-            f"shard images.pack.bin (cache_images='packed'), as the JAX package "
-            f"writes them")
-    from PIL import Image
-
-    with Image.open(path) as im:
-        rgb = np.asarray(im.convert("RGB"))
-    return np.ascontiguousarray(rgb[:, :, ::-1])
+    """Decode an image file to BGR uint8, as ``cv2.imread`` gives it
+    (:func:`.image.imread`); raises :class:`FileNotFoundError` where no
+    reader of this process reads it."""
+    img = image.imread(path)
+    if img is None:
+        raise FileNotFoundError(f"{path}: not an image ({image.FORMATS}, or PIL's)")
+    return img
 
 
-def _sidecar_fresh(path: Path) -> bool:
+def sidecar_fresh(path: Path) -> bool:
     npy = path.with_suffix(".npy")
     return (npy.exists() and path.exists()
             and npy.stat().st_mtime >= path.stat().st_mtime)
@@ -184,9 +178,9 @@ class DotaDataset:
         images' content key, the JAX package's file: either package reads
         the other's (the cache is not written into a read-only directory).
         No pixel is read: the shape comes from the pack's index, the fresh
-        sidecar's ``.npy`` header or, where PIL is installed, the image
-        file's header; an image with none of these gets ``(img_size,
-        img_size)``, the JAX package's shape for an image it cannot read (a
+        sidecar's ``.npy`` header, a PNG or BMP header (:mod:`.image`) or,
+        where PIL is installed, another image file's header; an image with
+        none of these gets ``(img_size, img_size)``, the JAX package's shape for an image it cannot read (a
         file that PIL cannot read raises here, as it does in
         :meth:`load_image`)."""
         if getattr(self, "_shapes", None) is not None:
@@ -210,21 +204,18 @@ class DotaDataset:
         if self._pack is not None:
             return self._pack.shape(i)[:2]
         path = self.img_files[i]
-        if _sidecar_fresh(path):
+        if sidecar_fresh(path):
             return np.load(path.with_suffix(".npy"), mmap_mode="r").shape[:2]
-        if HAVE_PIL and path.exists():
-            from PIL import Image
-
-            with Image.open(path) as im:
-                return im.size[1], im.size[0]
-        return self.img_size, self.img_size
+        shape = image.read_shape(path) if path.exists() else None
+        return shape if shape is not None else (self.img_size, self.img_size)
 
     def load_image(self, i: int) -> np.ndarray:
-        """Image i, BGR uint8: from the pack, the fresh sidecar, or PIL."""
+        """Image i, BGR uint8: from the pack, the fresh sidecar, or the file
+        (:func:`decode_image`)."""
         if self._pack is not None:
             return self._pack.get(i)
         path = self.img_files[i]
-        if _sidecar_fresh(path):
+        if sidecar_fresh(path):
             return np.load(path.with_suffix(".npy"))
         return decode_image(path)
 

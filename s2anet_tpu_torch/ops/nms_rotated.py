@@ -1,4 +1,5 @@
-"""Multiclass rotated NMS with fixed-capacity outputs, batched over images.
+"""Rotated NMS: multiclass with fixed-capacity outputs, batched over images,
+and the single-image entry points :func:`nms_rotated` / :func:`ml_nms_rotated`.
 
 Counterpart of ``s2anet_tpu/ops/nms_rotated.py::multiclass_nms_rotated``:
 scores at or below ``score_thr`` become -1, the top ``pre_nms_cap`` of the
@@ -121,6 +122,37 @@ def nms_keep(boxes, labels, valid, iou_thr):
     if boxes.device.type == "cpu":
         return nms_keep_plain(boxes, labels, valid, iou_thr)
     return nms_keep_cuda(boxes, labels, valid, iou_thr)
+
+
+def ml_nms_rotated(boxes: torch.Tensor, scores: torch.Tensor, labels=None,
+                   iou_thr: float = 0.5, valid=None) -> torch.Tensor:
+    """Multi-label rotated NMS of one image (JAX ``ml_nms_rotated``): boxes
+    ``[K, 5]``, scores ``[K]``, labels ``[K]`` (None: one label for all)
+    and ``valid`` ``[K]`` bool (None: all). Invalid scores become -inf and
+    the candidates are taken in the stable order of ``-score`` (JAX's
+    ``argsort``; a tie keeps the lower index first); boxes of different
+    labels never suppress each other and invalid ones never suppress.
+    Returns the keep mask ``[K]`` in input order, through :func:`nms_keep`
+    (the CUDA mask and sweep on a CUDA tensor)."""
+    k = boxes.shape[0]
+    if valid is None:
+        valid = torch.ones(k, dtype=torch.bool, device=boxes.device)
+    keep = torch.zeros(k, dtype=torch.bool, device=boxes.device)
+    if k == 0:
+        return keep
+    s = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
+    order = torch.argsort(-s, stable=True)
+    lab = (torch.zeros(k, dtype=torch.int64, device=boxes.device) if labels is None
+           else labels[order])
+    keep[order] = nms_keep(boxes[order][None], lab[None], valid[order][None], iou_thr)[0]
+    return keep
+
+
+def nms_rotated(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float = 0.5,
+                valid=None) -> torch.Tensor:
+    """Single-class rotated NMS (JAX ``nms_rotated``): :func:`ml_nms_rotated`
+    with one label for all boxes; the keep mask ``[K]`` in input order."""
+    return ml_nms_rotated(boxes, scores, None, iou_thr, valid)
 
 
 def select_candidates(bboxes: torch.Tensor, scores: torch.Tensor,

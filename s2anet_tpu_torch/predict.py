@@ -23,24 +23,38 @@ Both modes scale the uint8 input as the repository's ``predict.py`` does,
 divided by 255 in float32 on the device, then cast to the compute type
 (``val`` and training multiply by float32(1/255), as the JAX loader does).
 Per input (rank 0 in spatial mode) it writes ``<save-dir>/<name>.txt``
-with one ``class score x1 y1 x2 y2 x3 y3 x4 y4`` line per detection, prints
-one ``<name>: N detections`` line, and ends with a JSON summary line
-(``mode``, ``ranks``, the model seconds apart from the merge's in chips
-mode or the decode's in spatial mode, and this process's launches of each
-serving kernel).
+with one ``class score x1 y1 x2 y2 x3 y3 x4 y4`` line per detection (a
+lone newline where there is none), with ``--save-img`` the input with its
+detections drawn (:func:`.utils.plots.draw_rboxes`) as ``<name>.png``,
+prints one ``<name>: N detections`` line, and at the end writes the DOTA
+submission ``<save-dir>/dota_submission/Task1_<class>.txt`` over all
+inputs and a JSON summary line (``mode``, ``ranks``, the model seconds
+apart from the merge's in chips mode or the decode's in spatial mode, and
+this process's launches of each serving kernel). Class names are
+``predict.py``'s: the ``--names`` preset (else the DOTA-v1.0 list), and
+``0``, ``1``, ... where its length is not the number of classes.
 
-Inputs: ``--source`` is a directory of ``.npy`` images (``[H, W, 3]``
-uint8 **RGB**, any size) or ``--synthetic N`` makes N random images of
-``--img-size`` (in spatial mode the config's window size) from ``--seed``.
+Inputs: ``--source`` is an image file or a directory of image files
+(``predict.py``'s extensions), each read as ``cv2.imread`` reads it: its
+BGR ``.npy`` sidecar where one is newer than the image (the JAX loader's
+``cache_images: disk``), else the file (:func:`.data.image.imread`: PNG
+and BMP here, other formats through PIL where it is installed), then
+turned to RGB; a file that is not an image is skipped, as in
+``predict.py``. With ``--npy``, ``--source`` is a ``.npy`` file or a
+directory of them, each ``[H, W, 3]`` uint8 **RGB**, any size (a ``.npy``
+with an image of its stem beside it is a BGR sidecar and is refused);
+``--synthetic N`` makes N random images of ``--img-size`` (in spatial mode
+the config's window size) from ``--seed``. The ``.png`` drawings are a
+named divergence from ``predict.py``'s ``.jpg`` (the card's machine has no
+JPEG encoder), and so are the label glyphs (a bitmap font, not Hershey's).
 Weights: ``--weights`` takes an ``.npz`` of JAX-layout variables
 (:func:`.models.convert.save_jax_npz`), a port ``state_dict`` (the
 trainer's ``weights/deploy``) or a training checkpoint (``weights/last``,
 ``best``, ``epochN``: its EMA weights, or its model's with ``--no-ema``);
 with none, the weights are random from ``--seed``. ``--config`` reads a
 YAML config: ``--backbone``, ``--num-classes``, ``--img-size``,
-``--iou-thres`` and ``--names`` replace its values when typed, ``--conf``
-defaults to its ``model.predict_score_thr`` (0.3), and the class names
-written are its names (``--names`` a preset).
+``--iou-thres`` and ``--names`` replace its values when typed, and
+``--conf`` defaults to its ``model.predict_score_thr`` (0.3).
 
 int8 serving (``ModelConfig.quant``) runs through ``python -m
 s2anet_tpu_torch.val --quant int8``, which calibrates on its first
@@ -62,10 +76,13 @@ import torch
 import torch.distributed as dist
 
 from . import native
-from .config import ModelConfig, load_config, prune_overrides
+from .config import NAMES_PRESETS, ModelConfig, load_config, prune_overrides
+from .data.dota import sidecar_fresh
+from .data.image import imread
 from .data.merge import merge_chip_detections
-from .data.split import split_image
-from .eval.runner import BatchPipeline, detections_to_polys
+from .data.split import DOTA_CLASSES, split_image
+from .data.synth import write_png
+from .eval.runner import BatchPipeline, detections_to_polys, save_dota_results
 from .models.convert import load_jax_npz, state_dict_from_jax
 from .models.detector import S2ANet
 from .models.fold import fold_bn
@@ -73,11 +90,14 @@ from .models.head import s2anet_get_bboxes
 from .ops.deform_conv import DEFORM_FWD
 from .ops.nms_rotated import NMS_MASK, NMS_SWEEP
 from .ops.quant import CONV, QUANTIZE, calibrate, parse_scope
+from .ops.rbox import poly_to_rbox_np
 from .parallel import mesh
 from .parallel.spatial import padded_size, spatial_forward
 from .train.step import scale_images
+from .utils.plots import draw_rboxes
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp"}  # predict.py's
 KERNELS = (DEFORM_FWD, NMS_MASK, NMS_SWEEP, QUANTIZE, CONV)  # the serving path's
 # cuDNN autotuning by mode. Chips mode runs one batch shape. Spatial mode
 # meets a new shape with nearly every scene size, where autotuning costs
@@ -186,6 +206,26 @@ class S2ANetPredictor:
         return s2anet_get_bboxes(out, **{**self.post_kwargs(), **overrides})
 
 
+def _list_images(source: str, exts):
+    """``predict.py``'s ``_list_images``: a file as it is, else the
+    directory's files with one of ``exts``, sorted."""
+    src = Path(source)
+    if src.is_file():
+        return [src]
+    paths = sorted(p for p in src.iterdir() if p.suffix.lower() in exts)
+    if not paths:
+        raise SystemExit(f"no images found under {src}")
+    return paths
+
+
+def read_bgr(path: Path):
+    """``cv2.imread(path)``: the fresh BGR sidecar, else the file
+    (:func:`.data.image.imread`); None for a file that is not an image."""
+    if sidecar_fresh(path):
+        return np.load(path.with_suffix(".npy"))
+    return imread(path)
+
+
 def _inputs(opt):
     """``(name, [H, W, 3] uint8 RGB)`` per input."""
     if opt.synthetic:
@@ -194,15 +234,47 @@ def _inputs(opt):
             yield f"synthetic_{i:04d}", rng.integers(
                 0, 256, (opt.img_size, opt.img_size, 3), dtype=np.uint8)
         return
-    paths = sorted(Path(opt.source).glob("*.npy"))
-    if not paths:
-        raise SystemExit(f"no .npy images under {opt.source}")
-    for p in paths:
-        img = np.load(p)
-        if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
-            raise SystemExit(f"{p}: want [H, W, 3] uint8, got "
-                             f"{list(img.shape)} {img.dtype}")
-        yield p.stem, img
+    if opt.npy:
+        for p in _list_images(opt.source, {".npy"}):
+            beside = [p.with_suffix(e) for e in sorted(IMG_EXTS) if p.with_suffix(e).exists()]
+            if beside:
+                raise SystemExit(f"{p}: a BGR sidecar of {beside[0].name}; --npy takes "
+                                 f"RGB arrays (serve the image without --npy)")
+            img = np.load(p)
+            if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+                raise SystemExit(f"{p}: want [H, W, 3] uint8, got "
+                                 f"{list(img.shape)} {img.dtype}")
+            yield p.stem, img
+        return
+    for p in _list_images(opt.source, IMG_EXTS):
+        if p.suffix.lower() == ".npy":
+            raise SystemExit(f"{p}: a .npy array; serve RGB arrays with --npy")
+        img = read_bgr(p)
+        if img is None:
+            print(f"skipping unreadable image {p}")
+            continue
+        yield p.stem, np.ascontiguousarray(img[:, :, ::-1])
+
+
+def class_names(names_opt: str, num_classes: int):
+    """``predict.py``'s output names: the ``--names`` preset, else the
+    DOTA-v1.0 list; ``0``, ``1``, ... where its length is not
+    ``num_classes``."""
+    names = NAMES_PRESETS.get(names_opt.lower(), DOTA_CLASSES)
+    if len(names) != num_classes:
+        names = [str(i) for i in range(num_classes)]
+    return list(names)
+
+
+def draw(rgb: np.ndarray, dets, names) -> np.ndarray:
+    """``predict.py``'s drawing of ``dets`` on the BGR image of ``rgb``:
+    the minimum-area rotated box of each polygon, labelled; BGR out."""
+    bgr = np.ascontiguousarray(rgb[:, :, ::-1])
+    if not dets:
+        return bgr
+    rb = poly_to_rbox_np(np.stack([np.asarray(p).reshape(8) for _, _, p in dets]))
+    return draw_rboxes(bgr, rb, classes=[c for c, _, _ in dets],
+                       scores=[s for _, s, _ in dets], names=names)
 
 
 def serve_chips(predictor, inputs, img_size: int, gap: int, batch_size: int,
@@ -224,7 +296,7 @@ def serve_chips(predictor, inputs, img_size: int, gap: int, batch_size: int,
         for name, img in inputs:
             entry = [name, 0, {}, False]
             open_inputs.append(entry)
-            for chip_name, chip in split_image(img, name, img_size, gap):
+            for chip_name, chip, _ in split_image(img, [], name, img_size, gap):
                 entry[1] += 1
                 yield entry, chip_name, chip
             entry[3] = True
@@ -312,9 +384,14 @@ CHIPS_ONLY = {"gap": 200, "img_size": None, "batch_size": 8}  # chips-mode flags
 def parse_opt(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--source", help="directory of [H,W,3] uint8 RGB .npy images")
+    src.add_argument("--source", help="image file or directory (with --npy: .npy "
+                                      "file or directory of [H,W,3] uint8 RGB)")
     src.add_argument("--synthetic", type=int, default=0,
                      help="make N random chips from --seed")
+    p.add_argument("--npy", action="store_true",
+                   help="--source holds [H,W,3] uint8 RGB .npy arrays, not image files")
+    p.add_argument("--save-img", action="store_true",
+                   help="write each input with its detections drawn, <name>.png")
     p.add_argument("--mode", choices=["chips", "spatial"], default="chips",
                    help="chips: tile, detect per window, merge; spatial: each image "
                         "whole, its height sharded over torchrun's ranks")
@@ -368,7 +445,7 @@ def main(argv=None) -> dict:
     if spatial and cfg.quant != "none":
         raise ValueError(f"--mode spatial is float only: the config sets quant {cfg.quant!r}")
     opt.img_size = full.data.img_size
-    names = full.data.names
+    names = class_names(opt.names, cfg.num_classes)
     ours = spatial and not dist.is_initialized()  # a group this call joins, it leaves
     device = mesh.maybe_initialize_distributed(device=opt.device) if spatial else opt.device
     main_rank = mesh.is_main_process()
@@ -383,24 +460,39 @@ def main(argv=None) -> dict:
     n_images = n_chips = n_dets = 0
     timing: dict = {}
     counts = {k.symbol: k.launches for k in KERNELS}
+    kept = {}  # the inputs still to draw (--save-img)
+
+    def inputs():
+        for name, img in _inputs(opt):
+            if opt.save_img and main_rank:
+                kept[name] = img
+            yield name, img
+
     t0 = time.perf_counter()
     if spatial:
-        served = ((name, 1, dets) for name, dets in serve_spatial(predictor, _inputs(opt), timing))
+        served = ((name, 1, dets) for name, dets in serve_spatial(predictor, inputs(), timing))
     else:
         # the window slide img_size - gap stays positive
-        served = serve_chips(predictor, _inputs(opt), opt.img_size,
+        served = serve_chips(predictor, inputs(), opt.img_size,
                              min(opt.gap, opt.img_size // 2), opt.batch_size,
                              cfg.nms_iou_thr, timing)
+    by_class: dict = {}
     for name, n_windows, dets in served:
         n_images += 1
         n_chips += n_windows
         if not main_rank:
             continue
-        lines = [f"{names[c]} {s:.4f} " + " ".join(f"{v:.2f}" for v in poly)
-                 for c, s, poly in dets]
-        (save_dir / f"{name}.txt").write_text("".join(l + "\n" for l in lines))
+        lines = []
+        for c, s, poly in dets:
+            by_class.setdefault(c, []).append((name, s, poly))
+            lines.append(f"{names[c]} {s:.4f} " + " ".join(f"{v:.2f}" for v in poly))
+        (save_dir / f"{name}.txt").write_text("\n".join(lines) + "\n")
+        if opt.save_img:
+            write_png(save_dir / f"{name}.png", draw(kept.pop(name), dets, names)[:, :, ::-1])
         print(f"{name}: {len(lines)} detections")
         n_dets += len(lines)
+    if main_rank:
+        save_dota_results(by_class, names, save_dir / "dota_submission")
     summary = {"mode": opt.mode, "ranks": mesh.world_size(), "images": n_images}
     if not spatial:
         summary["chips"] = n_chips

@@ -233,3 +233,30 @@ def test_deform_fwd_on_rect_maps(b, h, w, dtype, tol):
     ref = dc.deform_conv2d_plain(x, off.to(dtype), wt)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("valid", ["all", "scattered", "none"])
+def test_single_class_nms_on_the_card(valid):
+    """``nms_rotated`` / ``ml_nms_rotated`` on CUDA tensors launch the mask
+    and the sweep once each and keep what the plain keep keeps."""
+    from unittest import mock
+
+    from s2anet_tpu_torch.ops import nms_rotated as nms
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    boxes, labels, _ = (t[0] for t in chip_smoke.clustered_candidates(torch, gen, 1, 1500, dev))
+    scores = torch.randint(0, 10, (1500,), generator=gen, device=dev).float() / 10
+    v = {"all": None, "none": torch.zeros(1500, dtype=torch.bool, device=dev),
+         "scattered": torch.rand(1500, generator=gen, device=dev) < 0.6}[valid]
+    for fn in (lambda: nms.nms_rotated(boxes, scores, 0.5, v),
+               lambda: nms.ml_nms_rotated(boxes, scores, labels, 0.5, v)):
+        before = (nms.NMS_MASK.launches, nms.NMS_SWEEP.launches)
+        keep = fn()
+        assert (nms.NMS_MASK.launches - before[0], nms.NMS_SWEEP.launches - before[1]) == (1, 1)
+        with mock.patch.object(nms, "nms_keep", nms.nms_keep_plain):
+            want = fn()
+        assert keep.is_cuda and torch.equal(keep, want)
+        assert (int(keep.sum()) > 0) == (valid != "none")

@@ -21,7 +21,7 @@ from s2anet_tpu.data import dota as jax_dota
 from s2anet_tpu.data import packed_cache as jax_packed
 from s2anet_tpu.data import split as jax_split
 from s2anet_tpu.ops import rbox as jax_rbox
-from s2anet_tpu_torch.data import augment, dota, packed_cache, split
+from s2anet_tpu_torch.data import augment, dota, image, packed_cache, split
 from s2anet_tpu_torch.ops import rbox
 
 SIZE = 128
@@ -104,18 +104,25 @@ def test_loader_batches_match_jax(dota_set, workers):
 
 
 def test_sidecar_rules(dota_set, monkeypatch):
-    """A sidecar older than its image is not served; without PIL and
-    without a fresh sidecar the dataset raises, naming the two forms."""
+    """A sidecar older than its image is not served: the PNG is decoded
+    (cv2's pixels), with PIL and without; without PIL and without a fresh
+    sidecar, an image that is neither PNG nor BMP raises, naming the forms
+    the port reads."""
     ds = dota.DotaDataset(dota_set / "images", img_size=SIZE)
     png = ds.img_files[0]
     want = cv2.imread(str(png))
     np.save(png.with_suffix(".npy"), np.zeros_like(want))
     t = time.time()
     os.utime(png.with_suffix(".npy"), (t - 100, t - 100))
-    np.testing.assert_array_equal(ds.load_image(0), want)  # decoded by PIL
-    monkeypatch.setattr(dota, "HAVE_PIL", False)
-    with pytest.raises(FileNotFoundError, match="sidecar.*packed"):
+    np.testing.assert_array_equal(ds.load_image(0), want)
+    monkeypatch.setattr(image, "HAVE_PIL", False)
+    np.testing.assert_array_equal(ds.load_image(0), want)
+    jpg = png.with_name("photo.jpg")
+    cv2.imwrite(str(jpg), want)
+    ds.img_files[0] = jpg
+    with pytest.raises(FileNotFoundError, match="PNG.*BMP.*sidecar.*packed"):
         ds.load_image(0)
+    jpg.unlink()
 
 
 def test_packed_shard_across_packages(dota_set):
@@ -219,11 +226,13 @@ def test_window_origins_match_jax(h, w, subsize, gap):
 
 @pytest.mark.parametrize("h,w", [(300, 200), (100, 60), (128, 128)])
 def test_split_image_matches_jax(rng, h, w):
+    """The same chip names at every rate; the chips equal at rate 1 and
+    within one level of cv2's bicubic rescale elsewhere."""
     img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-    got = list(split.split_image(img, "scene", 128, 32))
-    want = list(jax_split.split_image(img, [], "scene", 128, 32))
-    assert [n for n, _ in got] == [n for n, _, _ in want]
-    for (_, a), (_, b, _) in zip(got, want):
-        np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        next(split.split_image(img, "scene", 128, 32, rate=0.5))
+    for rate in (1.0, 0.5, 1.5):
+        got = list(split.split_image(img, [], "scene", 128, 32, rate=rate))
+        want = list(jax_split.split_image(img, [], "scene", 128, 32, rate=rate))
+        assert [n for n, _, _ in got] == [n for n, _, _ in want]
+        for (_, a, _), (_, b, _) in zip(got, want):
+            diff = np.abs(a.astype(np.int16) - b)
+            assert diff.max() <= (0 if rate == 1.0 else 1)

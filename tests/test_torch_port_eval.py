@@ -254,7 +254,7 @@ def _scene_set(root, rng):
         poly = polyiou.rbox_vertices_np(b).reshape(8)
         lines.append(" ".join(f"{v:.1f}" for v in poly) + f" {names[c]} {int(j % 7 == 0)}")
     (root / "gt" / "P0007.txt").write_text("imagesource:x\ngsd:0.1\n" + "\n".join(lines))
-    for chip_name, chip in split_image(scene, "P0007", SIZE, 32):
+    for chip_name, chip, _ in split_image(scene, [], "P0007", SIZE, 32):
         png = root / "images" / f"{chip_name}.png"
         cv2.imwrite(str(png), np.ascontiguousarray(chip[:, :, ::-1]))
         np.save(png.with_suffix(".npy"), np.ascontiguousarray(chip[:, :, ::-1]))

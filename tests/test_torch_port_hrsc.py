@@ -207,15 +207,19 @@ def test_predict_config_hrsc(monkeypatch, tmp_path):
 
 def test_predict_config_hrsc_writes_ships(tmp_path, capsys):
     """A real run of the HRSC config cut to R-18 at 128: one class, named
-    ship, on the output lines."""
-    summary = predict.main(["--synthetic", "1", "--config", str(HRSC_CONFIG),
-                            "--backbone", "resnet18", "--img-size", str(SIZE),
-                            "--device", "cpu", "--dtype", "float32", "--conf", "0.005",
-                            "--save-dir", str(tmp_path)])
-    lines = (tmp_path / "synthetic_0000.txt").read_text().splitlines()
-    assert summary["detections"] == len(lines) > 0
-    assert {line.split()[0] for line in lines} == {"ship"}
-    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
+    ship with ``--names hrsc``; from the config alone it is ``0``, as the
+    repository's ``predict.py`` names it (``--names``, else the DOTA list,
+    else the class indices)."""
+    for names, want in (("hrsc", "ship"), ("", "0")):
+        save = tmp_path / (names or "none")
+        summary = predict.main(["--synthetic", "1", "--config", str(HRSC_CONFIG),
+                                "--backbone", "resnet18", "--img-size", str(SIZE),
+                                "--device", "cpu", "--dtype", "float32", "--conf", "0.005",
+                                "--save-dir", str(save)] + (["--names", names] if names else []))
+        lines = (save / "synthetic_0000.txt").read_text().splitlines()
+        assert summary["detections"] == len(lines) > 0
+        assert {line.split()[0] for line in lines} == {want}
+        assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
 
 
 @pytest.mark.parametrize("cfg_dtype,flag,want", [

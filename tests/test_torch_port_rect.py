@@ -34,7 +34,7 @@ from s2anet_tpu.train.optim import build_optimizer
 from s2anet_tpu.train.state import create_train_state
 from s2anet_tpu.utils import config as jax_config
 from s2anet_tpu_torch import config
-from s2anet_tpu_torch.data import dota
+from s2anet_tpu_torch.data import dota, image
 from s2anet_tpu_torch.eval import runner
 from s2anet_tpu_torch.models.convert import save_jax_npz
 from s2anet_tpu_torch.predict import S2ANetPredictor
@@ -125,9 +125,9 @@ def _png_set(root, shapes, sidecars=True, seed=0):
 
 @pytest.mark.parametrize("source", ["sidecar", "pack", "jax_cache"])
 def test_shapes_match_jax(tmp_path, source, monkeypatch):
-    """Without PIL, an image with no sidecar gets ``(img_size, img_size)``,
-    the JAX package's shape for an image it cannot read; with PIL, a file it
-    cannot read raises (as loading it does)."""
+    """A file that is not an image gets ``(img_size, img_size)``, the JAX
+    package's shape for an image it cannot read, with PIL and without; the
+    PNGs' shapes come from their headers, or their sidecars."""
     images = _png_set(tmp_path, RECT_SHAPES + [(300, 90)], sidecars=source != "pack")
     (images / "broken.png").write_bytes(b"not an image")
     cache = images / "shapes.cache.npz"
@@ -142,10 +142,9 @@ def test_shapes_match_jax(tmp_path, source, monkeypatch):
         return
     cache.unlink()
     if source == "sidecar":
-        with pytest.raises(PIL.UnidentifiedImageError):
-            dota.DotaDataset(images, img_size=SIZE).shapes()
-        assert not cache.exists()
-    monkeypatch.setattr(dota, "HAVE_PIL", False)  # the card's machine may have no PIL
+        np.testing.assert_array_equal(dota.DotaDataset(images, img_size=SIZE).shapes(), want)
+        cache.unlink()
+    monkeypatch.setattr(image, "HAVE_PIL", False)  # the card's machine may have no PIL
     if source == "pack":
         (images / "broken.png").unlink()
         want = want[1:]

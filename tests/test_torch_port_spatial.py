@@ -143,6 +143,7 @@ def _ops_world(rank, world, store, out):
         got = pool(_rows(xr, rank, world))
     res["maxpool 3/2 p1"] = got, want
     torch.save(res, f"{out}/ops{rank}.pt")
+    mesh.shutdown()  # the gloo threads end before the process does
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -178,6 +179,7 @@ def _deform_world(rank, world, store, out):
                                    clamp)
         res[f"clamp {clamp}, {per_rank} rows a rank"] = got, want
     torch.save(res, f"{out}/deform{rank}.pt")
+    mesh.shutdown()  # the gloo threads end before the process does
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -260,6 +262,7 @@ def _detect_world(rank, world, store, out, clamp, weights, img_path, thr):
     if rank == 0:
         dets = s2anet_get_bboxes(whole, **dict(pred.post_kwargs(), score_thr=thr))
         torch.save({"out": whole, "dets": dets}, f"{out}/dets.pt")
+    mesh.shutdown()  # the gloo threads end before the process does
 
 
 def gap_threshold(out, lo: int = 10, hi: int = 28) -> float:
@@ -341,7 +344,7 @@ def test_cli_spatial_alone_and_on_two_ranks(tmp_path, one_thread):
     padded[0, :200, :300] = scene
     with torch.no_grad():
         thr = gap_threshold(pred.forward(pred.to_input(padded)))
-    common = ["--source", str(src), "--mode", "spatial", "--conf", repr(thr), *TINY]
+    common = ["--source", str(src), "--npy", "--mode", "spatial", "--conf", repr(thr), *TINY]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
     runs = {}
@@ -399,7 +402,8 @@ def test_predict_scales_as_predict_py(tmp_path, mode):
         seen.append(x.clone())
         return real(self, x)
 
-    argv = ["--source", str(src), "--mode", mode, *TINY, "--save-dir", str(tmp_path / "o")]
+    argv = ["--source", str(src), "--npy", "--mode", mode, *TINY, "--save-dir",
+            str(tmp_path / "o")]
     if mode == "chips":
         argv += ["--img-size", "256", "--batch-size", "1"]
     with mock.patch.object(predict.S2ANetPredictor, "forward", forward):

@@ -207,7 +207,7 @@ def test_predict_scene_matches_jax_tiling_and_merge(tmp_path, monkeypatch):
         return out
 
     monkeypatch.setattr(predict.S2ANetPredictor, "predict", record)
-    summary = predict.main(["--source", str(tmp_path / "src"), "--img-size", str(SIZE),
+    summary = predict.main(["--source", str(tmp_path / "src"), "--npy", "--img-size", str(SIZE),
                             "--gap", "32", "--batch-size", "2", "--backbone", "resnet18",
                             "--device", "cpu", "--dtype", "float32", "--seed", "7",
                             "--conf", str(thr), "--save-dir", str(tmp_path / "out")])
