@@ -316,6 +316,30 @@ last line:
                on 4096 clustered candidates with tied scores (valid all,
                70%, none) equal to the plain keep, one mask and one sweep
                launch a call
+ 19. export and tools  python -m s2anet_tpu_torch.export's path on the card:
+               R-50 1024^2 bf16 batch 8 (score_thr 0.005) through
+               torch.export, its graph holding the s2anet custom ops 5 / 1 /
+               1 (AlignConv forward, NMS mask, NMS sweep), saved; reloaded
+               in this process, bit-equal to S2ANetPredictor.predict on the
+               same batch, launching the kernels 5 / 1 / 1; reloaded in a
+               child process that imports only s2anet_tpu_torch.ops.library
+               (no models/ module), cuDNN autotuning off in both, bit-equal
+               again; a profiled batch of the reloaded program with the hand
+               kernels 5 / 1 / 1 and within 10 launches of the eager
+               module (its anchor grids are constants of the program; a
+               plain version would add hundreds); eager against
+               exported chips/s in turns (median of 5, spread), and given
+               --parent, eager predict() against that tree's in turns; the
+               GFLOP/chip of utils/flops.py on the exported graph after
+               dead-code removal and as executed, the measured bf16 matmul
+               peak and the model-FLOP share at phase 6's rate;
+               tools/profile_report on a traced serving batch and a traced
+               R-50 train step, each device total within 1% of the
+               profiler's key_averages(), top 15 kernels; python -m
+               s2anet_tpu_torch.tools.quant_scope_bench over its 5 scopes
+               (2 rounds of 3 batches); python -m
+               s2anet_tpu_torch.tools.visualize on 4 of phase 18's val
+               chips (phase 17's weights); the phase's seconds
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path (training, or serving for the NMS kernels, ``val --quant int8``
@@ -325,7 +349,8 @@ kernels on that path; ``rect_launches``: the ``val --rect`` run of phase 14,
 train step of each configuration of phase 15; ``dp_launches``: a step of
 phase 16a on rank 0, which is the fused finishing kernels' path; ``spatial_launches``:
 a 3072x4096 scene of phase 17a, with the AlignConv's time at its levels
-beside; ``image_launches``: a batch of phase 18's predict on PNG scenes), its
+beside; ``image_launches``: a batch of phase 18's predict on PNG scenes;
+``export_launches``: a batch of phase 19's reloaded exported program), its
 largest error
 against the plain version, its time, the plain version's and the library
 call's time where there is one, and the least time the card could take
@@ -4016,9 +4041,11 @@ def image_scene(rng, png: Path, label: Path):
     return img
 
 
-def phase_images(torch, dev, out_dir):
+def phase_images(torch, dev, out_dir, keep_files: bool = False):
     """Section 18 of the module docstring. Returns the launches of a
-    ``predict`` batch on image files and the phase's numbers."""
+    ``predict`` batch on image files. With ``keep_files`` its files stay under
+    ``out_dir/images`` (phase 19 draws on its chips); the caller removes
+    them."""
     say("== 18. image files")
     import zlib
 
@@ -4184,7 +4211,304 @@ def phase_images(torch, dev, out_dir):
                   f"{fname}, 4096 clustered candidates, valid {vname}: keeps equal to the "
                   f"plain keep's ({int(keep.sum())} kept), mask and sweep launched once")
     say(f"   phase 18 numbers beside {card}")
+    if not keep_files:
+        shutil.rmtree(work, ignore_errors=True)
+    return per_batch
+
+
+# phase 19: a child process that reloads the exported program with the
+# port's custom ops and nothing else of the package and serves one batch
+# (argv: program, its input, the uint8 batch, the outputs, TF32 in cuDNN,
+# seed); then, the modules it needed recorded, the eager predictor on the
+# same batch in the same fresh process. cuDNN never autotunes there, so
+# both meet the same convolution algorithms: a process that has autotuned
+# a shape keeps the algorithms it found for it, even with autotuning off
+EXPORT_CHILD = """
+import json, sys
+import numpy as np
+import torch
+import s2anet_tpu_torch.ops.library  # noqa: F401  (the s2anet ops)
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.allow_tf32 = sys.argv[5] == "1"
+program = torch.export.load(sys.argv[1]).module()
+out = program(torch.from_numpy(np.load(sys.argv[2])).cuda())
+modules = sorted(m for m in sys.modules if m.startswith("s2anet_tpu"))
+from s2anet_tpu_torch.config import ModelConfig
+from s2anet_tpu_torch.predict import S2ANetPredictor
+pred = S2ANetPredictor(ModelConfig(score_thr=0.005), device="cuda", dtype=torch.bfloat16,
+                       seed=int(sys.argv[6]))
+eager = pred.predict(np.load(sys.argv[3]))
+np.savez(sys.argv[4], *[t.cpu().numpy() for t in (*out, *eager)])
+print(json.dumps(modules))
+"""
+
+
+def device_kernels(torch, fn):
+    """``Counter`` of the device's kernels (and copies) by name over one
+    call of ``fn``, from the profiler."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return collections.Counter({e.key: e.count for e in prof.key_averages()
+                                if e.device_type == DeviceType.CUDA and e.count})
+
+
+def batches_per_s(torch, fn, n: int = 3) -> float:
+    """Chips/s of ``n`` batches of ``fn``, host clock to the device's end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return n * BATCH / (time.perf_counter() - t0)
+
+
+def report_against_profiler(torch, profiler, profile_report, trace_dir: Path, fn, what):
+    """Run ``fn`` once under ``utils/profiler.trace`` and hold the report's
+    device total within 1% of the profiler's own ``key_averages()``."""
+    from torch.autograd import DeviceType
+
+    with profiler.trace(trace_dir, what.replace(" ", "_")) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    avg = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(avg[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    # the ranges of the step marker and of record_function annotations
+    # (the optimizer's step) on the device's timeline are no kernels
+    own = sum(getattr(e, key) for e in avg if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("ProfilerStep")) / 1000
+    rep = profile_report.report(trace_dir)
+    check(rep["steps"] == 1 and abs(rep["total_ms"] - own) <= 0.01 * own,
+          f"profile_report on a {what}: {rep['total_ms']:.3f} ms of device time in "
+          f"{sum(n for _, n, _ in rep['kernels'].values())} launches, key_averages() "
+          f"{own:.3f} ms (within 1%)")
+    for line in profile_report.format_report(rep, top=15).splitlines():
+        if line and not line.startswith("trace"):
+            say(f"     {line}")
+    return rep
+
+
+def phase_export(torch, dev, out_dir, chips_s: float, parent=None):
+    """Section 19 of the module docstring. Returns the launches a batch of
+    the reloaded exported program."""
+    say("== 19. export and tools")
+    t_phase = time.perf_counter()
+    laps = []
+
+    def lap(what: str) -> None:
+        laps.append((what, time.perf_counter()))
+    from s2anet_tpu_torch import export as port_export
+    from s2anet_tpu_torch.config import ModelConfig
+    from s2anet_tpu_torch.ops import deform_conv as dc
+    from s2anet_tpu_torch.ops import nms_rotated as nms
+    from s2anet_tpu_torch.predict import S2ANetPredictor
+    from s2anet_tpu_torch.tools import profile_report, quant_scope_bench, visualize
+    from s2anet_tpu_torch.train import __main__ as train_cli
+    from s2anet_tpu_torch.train.step import INV255, train_step
+    from s2anet_tpu_torch.utils import flops, profiler
+
+    card = card_line()
+    work = out_dir / "export"
     shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    kernels = (dc.DEFORM_FWD, nms.NMS_MASK, nms.NMS_SWEEP)
+    # autotuning off for the comparisons: every process picks the same
+    # convolution algorithms
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    cfg = ModelConfig(score_thr=0.005)  # 4096 valid NMS candidates an image
+    pred = S2ANetPredictor(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    serving = port_export.serving_module(pred)
+    t0 = time.perf_counter()
+    program = port_export.export_serving(serving, BATCH, SIZE, dev)
+    t_export = time.perf_counter() - t0
+    path = work / "s2anet.pt2"
+    torch.export.save(program, path)
+    ops = {str(n.target): 0 for n in program.graph.nodes if str(n.target).startswith("s2anet.")}
+    for n in program.graph.nodes:
+        if str(n.target) in ops:
+            ops[str(n.target)] += 1
+    check(ops == {"s2anet.s2a_deform_conv2d_fwd.default": 5,
+                  "s2anet.s2a_nms_rotated_mask.default": 1,
+                  "s2anet.s2a_nms_rotated_sweep.default": 1},
+          f"torch.export of R-50 {SIZE}^2 bf16 batch {BATCH} (score_thr 0.005) on the card in "
+          f"{t_export:.1f} s, {path.stat().st_size / 1e6:.1f} MB; the graph's s2anet ops {ops}")
+    lap("export")
+
+    imgs = np.random.default_rng(SEED + 19).integers(0, 256, (BATCH, SIZE, SIZE, 3),
+                                                     dtype=np.uint8)
+    x = torch.from_numpy(imgs).to(dev).float().mul_(INV255)  # predict's own scaling
+    want = pred.predict(imgs)
+    t0 = time.perf_counter()
+    loaded = torch.export.load(path).module()
+    t_load = time.perf_counter() - t0
+    for k in kernels:
+        k.launches = 0
+    got = loaded(x)
+    torch.cuda.synchronize()
+    per_batch = {k.symbol: k.launches for k in kernels}
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(same and per_batch == {"s2a_deform_conv2d_fwd": 5, "s2a_nms_rotated_mask": 1,
+                                 "s2a_nms_rotated_sweep": 1} and int(want[2].sum()) > 0,
+          f"reloaded in {t_load:.1f} s: bit-equal to S2ANetPredictor.predict on the same "
+          f"batch ({int(want[2].sum())} detections); launches {per_batch}")
+    np.save(work / "x.npy", x.cpu().numpy())
+    np.save(work / "imgs.npy", imgs)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", EXPORT_CHILD, str(path), str(work / "x.npy"),
+                          str(work / "imgs.npy"), str(work / "out.npz"),
+                          str(int(torch.backends.cudnn.allow_tf32)), str(SEED)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    t_child = time.perf_counter() - t0
+    if res.returncode:
+        check(False, f"child process: rc {res.returncode}: {res.stderr[-2000:]}")
+    modules = json.loads(res.stdout.strip().splitlines()[-1])
+    child = np.load(work / "out.npz")
+    child_out = [child[f"arr_{i}"] for i in range(3)]
+    child_eager = [child[f"arr_{i}"] for i in range(3, 6)]
+    child_same = all(np.array_equal(a, b) for a, b in zip(child_out, child_eager))
+    # against this process's eager batch, whose convolutions phases 5-18
+    # autotuned: other algorithms, other bf16 roundings
+    _, by_iou, total = detection_agreement(torch, dev, child_out,
+                                           [t.cpu().numpy() for t in want])
+    check(child_same and "s2anet_tpu_torch.ops.library" in modules
+          and not [m for m in modules if m.startswith("s2anet_tpu_torch.models")],
+          f"a child process importing only s2anet_tpu_torch.ops.library ({len(modules)} "
+          f"s2anet_tpu_torch modules, none of models/) and cuDNN never autotuning: the "
+          f"reloaded program bit-equal to the eager predictor in that process "
+          f"({int(child_out[2].sum())} detections); against this process's eager batch "
+          f"matched 1:1 by IoU {by_iou:.4f} of {total}; {t_child:.1f} s with its start")
+    lap("reloads")
+    eager_k = device_kernels(torch, lambda: serving(x))
+    export_k = device_kernels(torch, lambda: loaded(x))
+    hand = {n: c for n, c in export_k.items()
+            if any(h in n for h in ("deform_fwd", "nms_mask_kernel", "nms_sweep_kernel"))}
+    extra = sum(export_k.values()) - sum(eager_k.values())
+    # the program holds the head's cached anchor grids as constants, so it
+    # launches what the eager module does. A plain AlignConv adds hundreds
+    # of launches a level, the plain sweep thousands
+    check(sorted(hand.values()) == [1, 1, 5] and abs(extra) <= 10,
+          f"profiled batch of the reloaded program: {sum(export_k.values())} launches, "
+          f"the hand kernels {dict((n[:40], c) for n, c in hand.items())}; the eager module "
+          f"{sum(eager_k.values())} launches ({extra:+d}, bar 10)")
+
+    # eager against exported, in turns, autotuning on (serving's setting)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = True, False
+    for fn in (lambda: serving(x), lambda: loaded(x)):
+        fn()
+    rates = {"eager": [], "exported": []}
+    for _ in range(REPEATS):
+        for name, fn in (("eager", lambda: serving(x)), ("exported", lambda: loaded(x))):
+            rates[name].append(batches_per_s(torch, fn))
+    say("   serving module at score_thr 0.005 on a device batch, in turns (median of "
+        f"{REPEATS} x 3 batches): " + "; ".join(
+            f"{name} {median_spread(r)[0]:.2f} chips/s (spread {median_spread(r)[1]:.1%}, "
+            f"runs {', '.join(f'{v:.2f}' for v in r)})" for name, r in rates.items())
+        + f"; {card}")
+    lap("profiles and timing")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loaded(x)
+        torch.cuda.synchronize()
+    (work.parent / "chip_smoke_export_profile.txt").write_text(
+        f"{card}\n{prof.key_averages().table(sort_by='self_cpu_time_total', row_limit=40)}\n")
+    if parent is not None:
+        import importlib
+
+        load_parent(parent)
+        ppredict = importlib.import_module(PARENT_PKG + ".predict")
+        pconfig = importlib.import_module(PARENT_PKG + ".config")
+        ppred = ppredict.S2ANetPredictor(pconfig.ModelConfig(), device="cuda",
+                                         dtype=torch.bfloat16, seed=SEED)
+        npred = S2ANetPredictor(ModelConfig(), device="cuda", dtype=torch.bfloat16, seed=SEED)
+        for p in (npred, ppred, npred):
+            p.predict(imgs)
+        turns = {"this tree": [], "parent": []}
+        for r in range(REPEATS):
+            order = ("this tree", "parent") if r % 2 == 0 else ("parent", "this tree")
+            for name in order:
+                p = npred if name == "this tree" else ppred
+                turns[name].append(batches_per_s(torch, lambda p=p: p.predict(imgs)[0].sum().item()))
+        say("   eager serving, predict() at score_thr 0.05 as phase 6, in turns with --parent "
+            f"(median of {REPEATS} x 3 batches): " + "; ".join(
+                f"{name} {median_spread(r)[0]:.2f} chips/s (spread {median_spread(r)[1]:.1%}, "
+                f"runs {', '.join(f'{v:.2f}' for v in r)})" for name, r in turns.items())
+            + f"; {card}")
+        del ppred, npred
+        lap("--parent")
+
+    # the analytic FLOPs of the program, the measured matmul peak, the share
+    dce = flops.count_program_flops(program, dce=True) / BATCH
+    executed = flops.count_program_flops(program, dce=False) / BATCH
+    peak = flops.measure_matmul_peak(torch.bfloat16)
+    say(f"   FLOPs (utils/flops.py on the exported graph): {dce / 1e9:.3f} GFLOP/chip after "
+        f"dead-code removal, {executed / 1e9:.3f} as the eager port executes them (the FAM "
+        f"classification branch {100 * (executed - dce) / executed:.1f}%); measured bf16 "
+        f"matmul peak {peak / 1e12:.1f} TFLOP/s (4096^3 torch.mm, differenced chains); "
+        f"model-FLOP share at phase 6's {chips_s:.2f} chips/s: "
+        f"{100 * flops.mfu(dce, chips_s, peak):.2f}% of the measured peak, "
+        f"{100 * flops.mfu(dce, chips_s, BF16_FLOP_S):.2f}% of 989 TFLOP/s; {card}")
+    del program, loaded
+    lap("FLOPs and peak")
+
+    # profile_report on a serving batch and on a train step
+    report_against_profiler(torch, profiler, profile_report, work / "trace_serve",
+                            lambda: pred.predict(imgs)[0].sum().item(), "serving batch")
+    del pred, serving
+    args = ["--backbone", "resnet50", "--img-size", str(SIZE), "--batch-size", str(BATCH),
+            "--dtype", "bfloat16", "--clamp", "6.0", "--seed", str(SEED)]
+    tcfg, model, optimizer, ema, batches = train_cli.setup(train_cli.parse_opt(args))
+    for i in range(2):
+        train_step(model, optimizer, ema, batches[i % len(batches)], tcfg).tolist()
+    report_against_profiler(torch, profiler, profile_report, work / "trace_train",
+                            lambda: train_step(model, optimizer, ema, batches[0], tcfg).tolist(),
+                            "train step")
+    del model, optimizer, ema, batches
+    torch.cuda.empty_cache()
+    lap("profile_report")
+
+    say("   python -m s2anet_tpu_torch.tools.quant_scope_bench --reps 2")
+    rows = quant_scope_bench.main(["--reps", "2"])
+    scoped = {r["scope"]: r for r in rows}
+    check(len(rows) == 1 + len(quant_scope_bench.DEFAULT_SCOPES)
+          and scoped["backbone,neck,head_stacks"]["conv_launches"] == 100
+          and scoped["backbone,neck,head_stacks,orconv,heads"]["conv_launches"] == 125
+          and all(r["chips_per_s"] > 0 for r in rows),
+          f"quant_scope_bench: float and {len(rows) - 1} scopes, int8 convs a batch "
+          + ", ".join(f"{r['scope']} {r['conv_launches']}" for r in rows))
+    torch.cuda.empty_cache()
+    lap("quant_scope_bench")
+
+    vis = work / "visual"
+    wfile = work / "w.pt"
+    # one chip at a time: shapes of their own, not worth autotuning
+    torch.backends.cudnn.benchmark = False
+    spatial_weights(torch, dev, ModelConfig(), wfile)
+    drawn = visualize.main(["--data-root", str(out_dir / "images" / "prep" / "val_split.txt"),
+                            "--out-dir", str(vis), "--weights", str(wfile), "--num", "4",
+                            "--img-size", str(SIZE), "--conf", "0.3"])
+    from s2anet_tpu_torch.data import image as image_mod
+
+    pngs = [image_mod.imread(p) for p in drawn]
+    check(len(pngs) == 4 and all(p.shape == (SIZE, SIZE, 3) for p in pngs),
+          f"visualize on phase 18's val chips: {len(pngs)} PNGs of {SIZE}x{SIZE} in {vis.name}/")
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = True, False
+    lap("visualize")
+    prev = t_phase
+    parts = []
+    for what, t in laps:
+        parts.append(f"{what} {t - prev:.1f}")
+        prev = t
+    say(f"   phase 19 in {time.perf_counter() - t_phase:.1f} s ({', '.join(parts)}); {card}")
     return per_batch
 
 
@@ -4716,9 +5040,11 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(out_dir / "spatial", ignore_errors=True)
     try:
-        image_launches = phase_images(torch, dev, out_dir)
+        image_launches = phase_images(torch, dev, out_dir, keep_files=True)
+        export_launches = phase_export(torch, dev, out_dir, chips_s, parent)
     finally:
         shutil.rmtree(out_dir / "images", ignore_errors=True)
+        shutil.rmtree(out_dir / "export", ignore_errors=True)
 
     say(card)
     src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"
@@ -4732,6 +5058,7 @@ def main(argv=None) -> int:
              rect_launches=rect["s2a_deform_conv2d_fwd"],
              spatial_launches=spatial_launches["s2a_deform_conv2d_fwd"],
              image_launches=image_launches["s2a_deform_conv2d_fwd"],
+             export_launches=export_launches["s2a_deform_conv2d_fwd"],
              max_abs_err=deform_err, ms=t_dk, plain_ms=t_dp, bound_ms=fwd_bound[0],
              bound_by=fwd_bound[1], library_ms=None, dense_conv_ms=dense_ms, **spatial_times),
         dict(name="deform_conv2d_bwd", source=src_d,
@@ -4750,6 +5077,7 @@ def main(argv=None) -> int:
              rect_launches=rect["s2a_nms_rotated_mask"],
              spatial_launches=spatial_launches["s2a_nms_rotated_mask"],
              image_launches=image_launches["s2a_nms_rotated_mask"],
+             export_launches=export_launches["s2a_nms_rotated_mask"],
              max_abs_err=float(mask_diff > 0), ms=t_mk, plain_ms=t_mp,
              bound_ms=m_bound[0], bound_by=m_bound[1], library_ms=None,
              clustered_ms=t_mc, clustered_bound_ms=c_bound[0]),
@@ -4760,6 +5088,7 @@ def main(argv=None) -> int:
              rect_launches=rect["s2a_nms_rotated_sweep"],
              spatial_launches=spatial_launches["s2a_nms_rotated_sweep"],
              image_launches=image_launches["s2a_nms_rotated_sweep"],
+             export_launches=export_launches["s2a_nms_rotated_sweep"],
              max_abs_err=float(keep_diff > 0), ms=t_sk, plain_ms=t_sp,
              bound_ms=sweep_bound[0], bound_by=sweep_bound[1], library_ms=None,
              no_valid_ms=t_s0),

@@ -3,8 +3,11 @@
 A port of :mod:`s2anet_tpu` (JAX): serving (ResNet + FPN + the S2ANet head,
 decode and multiclass rotated NMS; ``predict``, which also tiles and merges
 large scenes), the train step (``train``), evaluation on DOTA-format
-data (``data``, ``eval``, ``val``), and int8 post-training-quantised
-serving (``ops/quant.py``, ``val --quant int8``). The hot spots run as hand-written CUDA
+data (``data``, ``eval``, ``val``), int8 post-training-quantised
+serving (``ops/quant.py``, ``val --quant int8``), and the deploy and
+measurement tools (``export``: ``torch.export`` over the serving kernels'
+custom ops, ``ops/library.py``; ``utils/flops.py``, ``utils/profiler.py``,
+``tools``). The hot spots run as hand-written CUDA
 kernels (``csrc/``); the polygon IoU of the evaluation runs in a small C++
 library (``native/``). Everything else is plain PyTorch and NumPy.
 

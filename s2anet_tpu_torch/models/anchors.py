@@ -1,4 +1,6 @@
-"""Rotated anchor grids (NumPy), a copy of ``s2anet_tpu/models/anchors.py``.
+"""Rotated anchor grids (NumPy), a copy of ``s2anet_tpu/models/anchors.py``,
+and the head's grid of the default anchor made on a device by torch
+operations (:func:`grid_anchors_on`), equal to the NumPy one.
 
 Base size = the level's stride; one anchor per cell by default (scale 4,
 ratio 1, angle 0); centres at ``0.5 * (stride - 1)`` past each cell origin.
@@ -12,6 +14,7 @@ import itertools
 import math
 
 import numpy as np
+import torch
 
 
 def base_anchors(base_size: float, scales=(4.0,), ratios=(1.0,),
@@ -43,3 +46,18 @@ def grid_anchors(featmap_size, stride, scales=(4.0,), ratios=(1.0,),
         axis=-1,
     )
     return anchors.reshape(-1, 5)
+
+
+def grid_anchors_on(device, featmap_size, stride, row0: int = 0) -> torch.Tensor:
+    """:func:`grid_anchors` of the default anchor (scale 4, ratio 1, angle
+    0), the same float32 values, made on ``device`` by torch operations:
+    nothing is copied from the host. Every value is a float32 sum or
+    product of small integers and halves, exact in both."""
+    h, w = featmap_size
+    (bw, bh, ba), = base_anchors(float(stride)).tolist()
+    xs = torch.arange(w, dtype=torch.float32, device=device) * stride + 0.5 * (stride - 1)
+    ys = (torch.arange(row0, row0 + h, dtype=torch.float32, device=device) * stride
+          + 0.5 * (stride - 1))
+    ctr = torch.stack([xs.repeat(h), ys.repeat_interleave(w)], 1)
+    return torch.cat([ctr, *(torch.full((h * w, 1), v, dtype=torch.float32, device=device)
+                             for v in (bw, bh, ba))], 1)

@@ -60,7 +60,7 @@ from ..ops.quant import QuantMixin, call_conv
 from ..ops.rbox import rboxes_decode, rboxes_encode
 from ..ops.topk import top_k
 from ..parallel import mesh, rows
-from .anchors import grid_anchors
+from .anchors import grid_anchors_on
 from .assigner import assign_labels
 from .conv import Conv2d
 from .losses import focal_loss_with_logits, smooth_l1_loss
@@ -223,12 +223,18 @@ class S2ANetHead(nn.Module):
     def level_anchors(self, h: int, w: int, stride: int, device,
                       row0: int = 0) -> torch.Tensor:
         """``[H*W*A, 5]`` float32 anchor grid of one level from row
-        ``row0`` (of a height-sharded image), cached."""
+        ``row0`` (of a height-sharded image), made on ``device``
+        (:func:`.anchors.grid_anchors_on`) and cached. A trace
+        (``torch.export``) reads a cached grid as a constant of its graph
+        but stores none: what it makes are its own fake tensors
+        (:func:`..export.export_serving` fills the cache first)."""
         key = (h, w, stride, str(device), row0)
-        if key not in self._anchors:
-            self._anchors[key] = torch.from_numpy(
-                grid_anchors((h, w), stride, row0=row0)).to(device)
-        return self._anchors[key]
+        anchors = self._anchors.get(key)
+        if anchors is None:
+            anchors = grid_anchors_on(device, (h, w), stride, row0)
+            if not torch.compiler.is_compiling():
+                self._anchors[key] = anchors
+        return anchors
 
     @staticmethod
     def _head(conv: nn.Conv2d, x: torch.Tensor, lvl: int) -> torch.Tensor:

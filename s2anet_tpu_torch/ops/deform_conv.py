@@ -10,12 +10,15 @@ Layouts follow the JAX package: x ``[B, H, W, C]``, offsets
 ``[3, 3, C, Cout]`` (HWIO). Only stride 1, 'same' padding, dilation 1 and one
 deformable group -- the configuration AlignConv uses.
 
-:func:`deform_conv2d` runs :func:`deform_conv2d_plain` for a CPU tensor,
-differentiated by autograd, and for a CUDA tensor the forward kernel inside
-an ``autograd.Function`` whose backward is the backward kernel; it never
-moves work between devices. The offsets get no gradient on the kernel path:
-AlignConv derives them from detached anchors, as the TPU kernel's VJP
-(``_hat_core_bwd``) assumes.
+:func:`deform_conv2d` without gradients (serving) runs the custom op
+``s2anet::s2a_deform_conv2d_fwd`` (``ops/library.py``): the forward kernel
+for a CUDA tensor, :func:`deform_conv2d_plain` for a CPU tensor. Where a
+gradient is wanted (training) it runs :func:`deform_conv2d_plain` for a CPU
+tensor, differentiated by autograd, and for a CUDA tensor the forward
+kernel inside an ``autograd.Function`` whose backward is the backward
+kernel. It never moves work between devices. The offsets get no gradient
+on the kernel path: AlignConv derives them from detached anchors, as the
+TPU kernel's VJP (``_hat_core_bwd``) assumes.
 """
 
 from __future__ import annotations
@@ -251,7 +254,10 @@ class _DeformConvCUDA(torch.autograd.Function):
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,
                   weight: torch.Tensor) -> torch.Tensor:
     """3x3 deformable conv, NHWC: the plain version for a CPU tensor, the
-    CUDA kernels for a CUDA tensor."""
+    CUDA kernels for a CUDA tensor; without gradients through the custom
+    op."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, offsets, weight))):
+        return torch.ops.s2anet.s2a_deform_conv2d_fwd(x, offsets, weight)
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offsets, weight)
     return _DeformConvCUDA.apply(x, offsets, weight)

@@ -10,7 +10,9 @@ different labels never suppress each other, suppression is ``IoU > iou_thr``
 
 The greedy keep runs as two CUDA kernels on a CUDA tensor (the bitmask of
 suppressing pairs, then a sweep per image; ``csrc/iou_nms_rotated.cu``) and
-as a dense IoU matrix plus a sequential sweep on a CPU tensor.
+as a dense IoU matrix plus a sequential sweep on a CPU tensor, both through
+the custom ops ``s2anet::s2a_nms_rotated_mask`` and
+``s2anet::s2a_nms_rotated_sweep`` (``ops/library.py``).
 """
 
 from __future__ import annotations
@@ -54,17 +56,21 @@ def nms_keep_plain(boxes: torch.Tensor, labels: torch.Tensor,
     """Greedy keep mask ``[B, K]`` of score-sorted candidates ``[B, K, 5]``:
     the dense overlap matrix, then a sequential sweep in which a suppressed
     row suppresses nothing."""
-    b, k = valid.shape
     alive = valid.clone()
-    pos = torch.arange(1, k + 1, device=valid.device)
-    n = int((valid * pos).amax()) if k else 0
+    n = last_valid(valid)
     if n == 0:
         return alive
-    # score-sorted candidates put the valid ones first: sweep up to the
-    # last valid one
     over = overlap_plain(boxes, labels, valid, iou_thr, n)
     alive[:, :n] = sweep_plain(over, valid[:, :n])
     return alive
+
+
+def last_valid(valid: torch.Tensor) -> int:
+    """One past the last valid candidate of any image of ``valid [B, K]``
+    (0 if none): score-sorted candidates put the valid ones first, so the
+    plain NMS sweeps up to there."""
+    pos = torch.arange(1, valid.shape[1] + 1, device=valid.device)
+    return int((valid * pos).amax()) if valid.numel() else 0
 
 
 def sweep_plain(over: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
@@ -104,24 +110,35 @@ def nms_mask_cuda(boxes: torch.Tensor, labels: torch.Tensor,
     return _mask(bx, lab, ok, iou_thr, torch.cuda.current_stream(bx.device).cuda_stream)
 
 
-def nms_keep_cuda(boxes: torch.Tensor, labels: torch.Tensor,
-                  valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
-    """The two CUDA kernels: suppression bitmask, then one sweep per image."""
-    bx, lab, ok = _mask_inputs(boxes, labels, valid)
-    b, k = ok.shape
-    stream = torch.cuda.current_stream(bx.device).cuda_stream
-    mask = _mask(bx, lab, ok, iou_thr, stream)
-    keep = torch.empty(b, k, dtype=torch.bool, device=bx.device)
-    NMS_SWEEP(mask.data_ptr(), ok.data_ptr(), keep.data_ptr(), b, k, stream)
+def nms_sweep_cuda(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The sweep kernel: the greedy keep ``[B, K]`` over the bitmask of
+    :func:`nms_mask_cuda` and the valid flags."""
+    b, k = valid.shape
+    if not (mask.is_cuda and valid.is_cuda):
+        raise ValueError("the NMS kernels take CUDA tensors")
+    if mask.shape != (b, k, (k + 63) // 64) or mask.dtype != torch.int64:
+        raise ValueError(f"NMS sweep: mask {tuple(mask.shape)} {mask.dtype}, want "
+                         f"{(b, k, (k + 63) // 64)} int64")
+    mask = mask.contiguous()
+    ok = valid.to(torch.bool).contiguous()
+    keep = torch.empty(b, k, dtype=torch.bool, device=mask.device)
+    NMS_SWEEP(mask.data_ptr(), ok.data_ptr(), keep.data_ptr(), b, k,
+              torch.cuda.current_stream(mask.device).cuda_stream)
     return keep
 
 
+def nms_keep_cuda(boxes: torch.Tensor, labels: torch.Tensor,
+                  valid: torch.Tensor, iou_thr: float) -> torch.Tensor:
+    """The two CUDA kernels: suppression bitmask, then one sweep per image."""
+    return nms_sweep_cuda(nms_mask_cuda(boxes, labels, valid, iou_thr), valid)
+
+
 def nms_keep(boxes, labels, valid, iou_thr):
-    """Greedy keep mask: the plain version for CPU tensors, the CUDA kernels
-    for CUDA tensors."""
-    if boxes.device.type == "cpu":
-        return nms_keep_plain(boxes, labels, valid, iou_thr)
-    return nms_keep_cuda(boxes, labels, valid, iou_thr)
+    """Greedy keep mask through the custom ops: the CUDA kernels for CUDA
+    tensors, the plain versions for CPU tensors (equal to
+    :func:`nms_keep_plain` bit for bit)."""
+    mask = torch.ops.s2anet.s2a_nms_rotated_mask(boxes, labels, valid, float(iou_thr))
+    return torch.ops.s2anet.s2a_nms_rotated_sweep(mask, valid)
 
 
 def ml_nms_rotated(boxes: torch.Tensor, scores: torch.Tensor, labels=None,

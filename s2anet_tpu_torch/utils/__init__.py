@@ -1,1 +1,4 @@
-"""Training utilities: callback hooks and metric loggers."""
+"""Training utilities (callback hooks, metric loggers, plots) and the
+measurement ones: ``flops`` (analytic FLOPs of an exported graph, the
+card's matmul peak) and ``profiler`` (Chrome traces, timed ops, stage
+timers)."""

@@ -165,9 +165,13 @@ def test_port_imports_no_jax():
             "optim.py", "state.py", "step.py", "__main__.py", "trainer.py",
             "checkpoint.py", "pretrained.py", "yaml_lite.py", "config.py", "augment.py",
             "dota.py", "synth.py", "callbacks.py", "loggers.py",
-            "runner.py", "quant.py", "conv.py", "convert.py"} <= {f.name for f in files}
+            "runner.py", "quant.py", "conv.py", "convert.py", "export.py",
+            "library.py", "flops.py", "profiler.py", "profile_report.py",
+            "quant_scope_bench.py", "visualize.py"} <= {f.name for f in files}
     assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/step.py",
-            "parallel/rows.py", "parallel/spatial.py"} <= {
+            "parallel/rows.py", "parallel/spatial.py", "ops/library.py", "utils/flops.py",
+            "utils/profiler.py", "tools/profile_report.py", "tools/quant_scope_bench.py",
+            "tools/visualize.py"} <= {
         f"{f.parent.name}/{f.name}" for f in files}
     banned = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "s2anet_tpu")
     for f in files:
@@ -181,9 +185,11 @@ def test_wrappers_have_no_try():
     catches it to run the plain version instead."""
     files = sorted(PORT.rglob("*.py"))
     assert {"moments.py", "bn.py", "step.py", "__main__.py", "trainer.py",
-            "loggers.py", "quant.py"} <= {f.name for f in files}
+            "loggers.py", "quant.py", "export.py"} <= {f.name for f in files}
     assert {"parallel/mesh.py", "parallel/step.py", "parallel/rows.py",
-            "parallel/spatial.py"} <= {f"{f.parent.name}/{f.name}" for f in files}
+            "parallel/spatial.py", "ops/library.py", "utils/flops.py", "utils/profiler.py",
+            "tools/profile_report.py", "tools/quant_scope_bench.py",
+            "tools/visualize.py"} <= {f"{f.parent.name}/{f.name}" for f in files}
     for f in files:
         tree = ast.parse(f.read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), f
