@@ -114,14 +114,23 @@ last line:
                losses and a val mAP50; weights/last, best, deploy; launches
                per train step as phase 9's (AlignConv 5/5, BN moments, pair,
                apply and dx 53 each, IoU 2) and per validation batch
-               (AlignConv forward 5, IoU 2, NMS mask and sweep 1); a
+               (AlignConv forward 5, IoU 2, NMS mask and sweep 1); the
+               training plots (plots on, as the config has them): labels.png
+               960x1200, train_batch0-2.png 1920x1920 (8 chips, 640^2 tiles),
+               pr_curves.png 720x960 and results.png 1440x1920, each read back
+               by data/image.py at that size, the plots' host seconds beside
+               the epoch loop's ms/step (which takes the three mosaics, drawn
+               while the device runs their steps: printed with and without
+               their seconds); a
                --resume from weights/epoch0 (4 times) runs epoch 1 only, with
                8 updates and the same LR, the straight run's train losses
                within 5% of the resumed runs' mean plus 3 of their standard
                deviations; python -m
                s2anet_tpu_torch.val --weights weights/deploy on the val chips
                (folded BN) within 0.02 mAP50 of the trainer's last
-               validation. Prints the loop's ms/step (both epochs, and each
+               validation; the first resumed run draws its mosaics again, the
+               later ones and the steady epochs below run with --noplots and
+               write no plot. Prints the loop's ms/step (both epochs, and each
                epoch to the device's end) beside phase 9's, the host's wait
                for the loader per step, the loader's augmented images/s
                alone (3 epochs), validation seconds and peak memory; then one
@@ -340,6 +349,26 @@ last line:
                (2 rounds of 3 batches); python -m
                s2anet_tpu_torch.tools.visualize on 4 of phase 18's val
                chips (phase 17's weights); the phase's seconds
+ 20. PAN neck  R-50 1024^2 bf16 serving (folded BN, seeded weights) with
+               its neck replaced by PAN((512, 1024, 2048), 256, 5) (a
+               harness in this phase: no config selects PAN), on 8 seeded
+               1024^2 chips. a: the PAN alone on the backbone's C3-C5, bf16
+               channels-last against its own weights in float32 (TF32 off),
+               each level within 2e-2 of the float32 level's largest
+               magnitude; the PAN's ms a batch in turns with its inner FPN's
+               (CUDA events) and the launches of each (profiler; the PAN's
+               more than the FPN's). b: the
+               serving path behind the PAN at score_thr 0.005, the kernel
+               path against the plain path (>= 95% of detections matched 1:1
+               by rotated IoU >= 0.5), AlignConv 5 and NMS mask and sweep 1
+               launch a batch; chips/s with the PAN neck and with the FPN
+               neck in turns. c: the PAN model in int8 (neck scope),
+               calibrated on 4 batches: quantiser and int8 conv 14 launches a
+               batch each, both kernels bit-equal to their plain versions on
+               every distinct shape of a batch, each conv's time against its
+               bound (bytes over 3.35 TB/s or int8 operations over 1,979
+               TOPS) with its plan, and the PAN convs' and the quantiser's
+               ms a batch against their bounds
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on its path (training, or serving for the NMS kernels, ``val --quant int8``
@@ -350,7 +379,10 @@ train step of each configuration of phase 15; ``dp_launches``: a step of
 phase 16a on rank 0, which is the fused finishing kernels' path; ``spatial_launches``:
 a 3072x4096 scene of phase 17a, with the AlignConv's time at its levels
 beside; ``image_launches``: a batch of phase 18's predict on PNG scenes;
-``export_launches``: a batch of phase 19's reloaded exported program), its
+``export_launches``: a batch of phase 19's reloaded exported program;
+``pan_launches``: a serving batch behind phase 20's PAN neck, its int8
+batch for the int8 kernels, beside their ``pan_ms`` and ``pan_bound_ms``
+a batch), its
 largest error
 against the plain version, its time, the plain version's and the library
 call's time where there is one, and the least time the card could take
@@ -1977,6 +2009,7 @@ def phase_train_loop(torch, out_dir, step_ms):
 
     from s2anet_tpu_torch import val as port_val
     from s2anet_tpu_torch.config import load_config
+    from s2anet_tpu_torch.data import image as image_mod
     from s2anet_tpu_torch.data import synth
     from s2anet_tpu_torch.data.dota import BatchLoader, DotaDataset
     from s2anet_tpu_torch.train import __main__ as train_cli
@@ -2033,6 +2066,11 @@ def phase_train_loop(torch, out_dir, step_ms):
           f"{[float(r['metrics/mAP_0.5']) for r in rows]}")
     check(all((run / "weights" / n).is_file() for n in ("last", "best", "deploy", "epoch0")),
           "weights/last, best, deploy (and epoch0) written")
+    shapes = {name: getattr(image_mod.imread(run / name), "shape", None)
+              for name in PLOT_SIZES}
+    check(shapes == {name: hw + (3,) for name, hw in PLOT_SIZES.items()},
+          f"the training plots, read back by data/image.py: {shapes}")
+    plot_s, mosaic_s = summary["plots_seconds"], summary["batch_plots_seconds"]
     steps = summary["steps"]
     per = {k: v / steps for k, v in counts["train"].items()}
     check(steps == 8 and per["s2a_deform_conv2d_fwd"] == 5 and per["s2a_deform_conv2d_bwd"] == 5
@@ -2050,8 +2088,12 @@ def phase_train_loop(torch, out_dir, step_ms):
           f"validation launches over {val_batches} batches {counts['val']}")
     epoch_ms = [1000 * float(r["time/epoch_s"]) / (steps // 2) for r in rows]
     say(f"   {wall:.1f} s in all; epoch loop {summary['ms_per_step']:.2f} ms/step over both "
-        f"epochs, to the device's end (epoch 0 {epoch_ms[0]:.2f}, epoch 1 {epoch_ms[1]:.2f}); "
-        f"phase 9's synthetic step {step_ms:.2f} ms/step in this run")
+        f"epochs, to the device's end (epoch 0 {epoch_ms[0]:.2f}, epoch 1 {epoch_ms[1]:.2f}), "
+        f"the three mosaics' {mosaic_s:.3f} s of epoch 0 inside it; without them "
+        f"{summary['ms_per_step'] - 1000 * mosaic_s / steps:.2f} ms/step; phase 9's "
+        f"synthetic step {step_ms:.2f} ms/step in this run")
+    say(f"   the plots' host seconds {plot_s:.3f} (labels, the three mosaics {mosaic_s:.3f}, "
+        f"pr_curves, results); {card_line()}")
     say(f"   the host's wait for the loader: {summary['loader_wait_ms_per_step']:.3f} ms/step; "
         f"last validation {summary['val_seconds']:.2f} s ({VAL_CHIPS} chips, batch "
         f"{cfg.eval.batch_size}); peak memory {summary['peak_memory_gib']:.2f} GiB")
@@ -2087,8 +2129,10 @@ def phase_train_loop(torch, out_dir, step_ms):
             steady.register_action(hook, callback=lambda ts=ts: ts.append(time.perf_counter()))
         s = train_cli.main(["--config", str(root / "dota_r50_every_epoch.yaml"), "--data-root",
                             str(listing), "--epochs", "1", "--noval", "--workers", str(workers),
-                            "--batch-size", str(BATCH), "--seed", str(SEED), "--save-dir",
-                            str(root / f"steady{workers}")], callbacks=steady)
+                            "--batch-size", str(BATCH), "--seed", str(SEED), "--noplots",
+                            "--save-dir", str(root / f"steady{workers}")], callbacks=steady)
+        check(not any((root / f"steady{workers}" / name).exists() for name in PLOT_SIZES),
+              f"--noplots: no plot in steady{workers}/")
         enqueue = np.subtract(marks["on_train_batch_end"], marks["on_train_batch_start"])
         say(f"   one {s['steps']}-step epoch, {workers} loader thread(s), no validation: "
             f"{s['ms_per_step']:.2f} ms/step to the device's end (phase 9: {step_ms:.2f}); "
@@ -2106,8 +2150,13 @@ def phase_train_loop(torch, out_dir, step_ms):
     for k in kernels:
         k.launches = 0
     runs = [train_cli.main(args + ["--save-dir", str(root / f"resumed{i}"), "--resume",
-                                   str(run / "weights" / "epoch0")] + ["--noval"] * (i > 0))
+                                   str(run / "weights" / "epoch0")]
+                           + ["--noval", "--noplots"] * (i > 0))
             for i in range(RESUMES)]
+    check(all((root / "resumed0" / f"train_batch{i}.png").is_file() for i in range(3))
+          and not any((root / f"resumed{i}" / name).exists() for i in range(1, RESUMES)
+                      for name in PLOT_SIZES),
+          "the first resumed run draws train_batch0-2.png again; --noplots runs draw none")
     resumed, rrows = runs[0], []
     for r in runs:
         with open(Path(r["save_dir"]) / "results.csv", newline="") as f:
@@ -2144,6 +2193,14 @@ def phase_train_loop(torch, out_dir, step_ms):
     shutil.rmtree(root)
     torch.cuda.empty_cache()
     return summary
+
+
+# phase 12: the training plots and their (H, W): matplotlib's figsize x 120
+# dpi; a mosaic of 8 chips is 3 x 3 tiles of 640^2; results.csv has 14
+# columns besides epoch_or_step: 4 rows of 4 panels of 480 x 360
+PLOT_SIZES = {"labels.png": (960, 1200), "train_batch0.png": (1920, 1920),
+              "train_batch1.png": (1920, 1920), "train_batch2.png": (1920, 1920),
+              "pr_curves.png": (720, 960), "results.png": (1440, 1920)}
 
 
 # phase 14: rect serving of the HRSC2016 configuration
@@ -4512,6 +4569,170 @@ def phase_export(torch, dev, out_dir, chips_s: float, parent=None):
     return per_batch
 
 
+PAN_BF16_TOL = 2e-2  # phase 20: a bf16 PAN level against float32, of its largest magnitude
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b| (float32)."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def phase_pan(torch, dev):
+    """Section 20 of the module docstring. Returns the launches a serving
+    batch with the PAN neck (float and int8) and the int8 rows' PAN
+    numbers."""
+    import copy
+
+    from s2anet_tpu_torch import predict as port_predict
+    from s2anet_tpu_torch.config import ModelConfig
+    from s2anet_tpu_torch.models import head as head_mod
+    from s2anet_tpu_torch.models.detector import S2ANet
+    from s2anet_tpu_torch.models.fpn import PAN
+    from s2anet_tpu_torch.models.resnet import stage_channels
+    from s2anet_tpu_torch.ops import deform_conv as dc
+    from s2anet_tpu_torch.ops import nms_rotated as nms
+    from s2anet_tpu_torch.ops import quant as pq
+
+    say("== 20. PAN neck")
+    t_phase = time.perf_counter()
+    card = card_line()
+    say(f"   card: {card}")
+    torch.backends.cudnn.benchmark = True
+    build = S2ANet.from_config
+
+    def pan_detector(mc):
+        """The detector with its neck a PAN, seeded as the rest."""
+        model = build(mc)
+        model.neck = PAN(stage_channels(mc.backbone), 256, len(mc.strides))
+        return model
+
+    with mock.patch.object(S2ANet, "from_config", pan_detector):
+        pred = port_predict.S2ANetPredictor(ModelConfig(), device="cuda", seed=SEED)
+        qpred = port_predict.S2ANetPredictor(ModelConfig(quant="int8", quant_scope="neck"),
+                                             device="cuda", seed=SEED)
+    fpn_pred = port_predict.S2ANetPredictor(ModelConfig(), device="cuda", seed=SEED)
+    check(isinstance(pred.model.neck, PAN) and isinstance(qpred.model.neck, PAN),
+          "R-50 1024^2 bf16 serving with the neck PAN((512, 1024, 2048), 256, 5) (folded BN, "
+          "seeded weights; lecun_normal PAN convs), and the same in int8 (neck scope)")
+    rng = np.random.default_rng(SEED + 20)
+    batches = [rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8) for _ in range(5)]
+    imgs = batches[0]
+
+    # a: the PAN alone in bf16 against its own weights in float32
+    with torch.no_grad():
+        feats = pred.model.backbone(pred.to_input(imgs))
+        pan = pred.model.neck
+        pan32 = copy.deepcopy(pan).float()
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        out32 = pan32([f.float() for f in feats])
+        torch.backends.cudnn.allow_tf32 = tf32
+        out16 = pan(feats)
+    errs = [rel_err(a, b) for a, b in zip(out16, out32)]
+    check(max(errs) <= PAN_BF16_TOL and all(torch.isfinite(o).all().item() for o in out16)
+          and [tuple(o.shape[2:]) for o in out16] == [(128, 128), (64, 64), (32, 32), (16, 16),
+                                                     (8, 8)],
+          f"PAN on C3-C5 of R-50 over 8 seeded 1024^2 chips: bf16 channels-last against "
+          f"the same weights in float32 (TF32 off), max |diff| / max |f32| per level P3-P7 "
+          + ", ".join(f"{e:.2e}" for e in errs) + f" (bound {PAN_BF16_TOL})")
+    with torch.no_grad():
+        (t_pan, s_pan), (t_fpn, s_fpn) = paired_ms(torch, lambda: pan(feats),
+                                                   lambda: pan.fpn(feats), 5)
+        # each count the larger of two profiles: in one whole run the
+        # first profile after phase 19's scheduled traces recorded nothing
+        l_pan = max(device_launches(torch, lambda: pan(feats)) for _ in range(2))
+        l_fpn = max(device_launches(torch, lambda: pan.fpn(feats)) for _ in range(2))
+    check(l_pan > l_fpn > 0,
+          f"neck a batch, in turns: PAN {t_pan:.3f} ms (spread {s_pan:.1%}), {l_pan} launches; "
+          f"its FPN alone {t_fpn:.3f} ms (spread {s_fpn:.1%}), {l_fpn} launches; {card}")
+    del feats, pan32, out32, out16
+
+    # b: serving behind the PAN, kernel path against plain path
+    kernels = (dc.DEFORM_FWD, nms.NMS_MASK, nms.NMS_SWEEP)
+    pred.predict(imgs, score_thr=0.005)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    det_k = [t.cpu().numpy() for t in pred.predict(imgs, score_thr=0.005)]
+    per_batch = {k.symbol: k.launches for k in kernels}
+    with plain_path(head_mod, dc, nms):
+        det_p = [t.cpu().numpy() for t in pred.predict(imgs, score_thr=0.005)]
+    centre, by_iou, total = detection_agreement(torch, dev, det_k, det_p)
+    check(by_iou >= 0.95 and per_batch == {"s2a_deform_conv2d_fwd": 5,
+                                           "s2a_nms_rotated_mask": 1,
+                                           "s2a_nms_rotated_sweep": 1},
+          f"serving with the PAN neck at score_thr 0.005: kernel path against plain path "
+          f"{by_iou:.1%} matched 1:1 by rotated IoU >= 0.5 ({centre:.1%} by centre) of {total} "
+          f"detections; launches a batch {per_batch}")
+    rates = {"PAN": [], "FPN": []}
+    for p in (pred, fpn_pred):
+        p.predict(imgs)
+    for _ in range(3):
+        for name, p in (("PAN", pred), ("FPN", fpn_pred)):
+            rates[name].append(batches_per_s(torch, lambda p=p: p.predict(imgs)[0].sum().item(), 3))
+    say("   chips/s at score_thr 0.05 (3 runs of 3 batches in turns): " + "; ".join(
+        f"{name} neck {rate_spread(r)}" for name, r in rates.items()) + f"; {card}")
+    del fpn_pred
+
+    # c: int8, neck scope, calibrated on 4 batches
+    ranges = qpred.calibrate(batches[1:])
+    check(len(ranges) == 14 and all(n.startswith("neck.") for n in ranges),
+          f"int8 PAN calibrated on 4 batches: {len(ranges)} quantised convs (3 laterals, "
+          f"5 output convs, 2 bottom-up, 4 PAN output)")
+    qkernels = (pq.QUANTIZE, pq.CONV, dc.DEFORM_FWD)
+    qpred.predict(imgs)
+    torch.cuda.synchronize()
+    for k in qkernels:
+        k.launches = 0
+    qpred.predict(imgs)
+    torch.cuda.synchronize()
+    q_batch = {k.symbol: k.launches for k in qkernels}
+    check(q_batch == {"s2a_quantize_act": 14, "s2a_int8_conv2d": 14,
+                      "s2a_deform_conv2d_fwd": 5},
+          f"int8 PAN launches a serving batch {q_batch}")
+    x = qpred.to_input(imgs)
+    convs, quants = record_int8(pq, lambda: qpred.forward(x))
+    n_eq = sum(torch.equal(pq.int8_conv2d_cuda(*a), pq.int8_conv2d_plain(*a))
+               for _, a in convs.values())
+    q_eq = sum(torch.equal(pq.quantize_act_cuda(*a), pq.quantize_act_plain(*a))
+               for _, a in quants.values())
+    check(n_eq == len(convs) and q_eq == len(quants),
+          f"int8 PAN: s2a_int8_conv2d == int8_conv2d_plain bit for bit on {n_eq} of "
+          f"{len(convs)} distinct conv shapes, s2a_quantize_act == quantize_act_plain on "
+          f"{q_eq} of {len(quants)} activation shapes")
+    conv_ms = conv_bound = conv_plain = q_ms = q_bound = 0.0
+    for key, (n, args) in sorted(convs.items()):
+        xq, wq, _, _, _, stride, pad, dtype, _ = args
+        b, h, w, cin, cout, k = key[:6]
+        ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+        m = b * ho * wo
+        t_k, sp = cuda_ms(torch, lambda a=args: pq.int8_conv2d_cuda(*a), 10)
+        t_p, _ = cuda_ms(torch, lambda a=args: pq.int8_conv2d_plain(*a), 1, repeats=1)
+        bd = bound(xq.numel() + wq.numel() + m * cout * dtype.itemsize + 12 * cout,
+                   2.0 * m * cout * k * k * cin, INT8_OPS_S)
+        plan = pq._plan(dev, xq.shape, wq.shape, stride, pad, dtype)[0]
+        say(f"     int8 conv {key[:8]} x{n}: {t_k:.4f} ms (spread {sp:.1%}), bound "
+            f"{bd[0]:.4f} ms ({bd[1]}), {bd[0] / t_k:.1%}; plain {t_p:.3f} ms; plan bn "
+            f"{plan.bn} amode {plan.amode} kb {plan.kb} splits {plan.splits}")
+        conv_ms, conv_bound, conv_plain = (conv_ms + n * t_k, conv_bound + n * bd[0],
+                                           conv_plain + n * t_p)
+    for key, (n, args) in quants.items():
+        t_q, _ = cuda_ms(torch, lambda a=args: pq.quantize_act_cuda(*a), 10)
+        q_ms += n * t_q
+        q_bound += n * bound(args[0].numel() * (args[0].element_size() + 1), 0, INT8_OPS_S)[0]
+    say(f"   int8 PAN convs, a batch ({sum(n for n, _ in convs.values())} calls): "
+        f"{conv_ms:.3f} ms, bound {conv_bound:.3f} ms: {conv_bound / conv_ms:.1%} of it (bytes "
+        f"/ 3.35 TB/s or operations / 1,979 TOPS), plain {conv_plain:.1f} ms; quantiser "
+        f"{q_ms:.3f} ms, bound {q_bound:.3f} ms ({q_bound / q_ms:.1%}); {card}")
+    del pred, qpred, convs, quants, x
+    torch.cuda.empty_cache()
+    say(f"   phase 20 in {time.perf_counter() - t_phase:.1f} s; {card}")
+    return dict(per_batch, **{f"int8 {k}": v for k, v in q_batch.items()
+                              if k != "s2a_deform_conv2d_fwd"},
+                conv=dict(ms=conv_ms, bound_ms=conv_bound, plain_ms=conv_plain),
+                quantize=dict(ms=q_ms, bound_ms=q_bound))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
     parser.add_argument("--out", default=str(ROOT / "runs" / "chip_smoke"),
@@ -5045,6 +5266,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(out_dir / "images", ignore_errors=True)
         shutil.rmtree(out_dir / "export", ignore_errors=True)
+    pan = phase_pan(torch, dev)
 
     say(card)
     src_d = "s2anet_tpu_torch/csrc/deform_conv.cu"
@@ -5115,6 +5337,12 @@ def main(argv=None) -> int:
     ] + quant_rows
     for r in rows:  # launches a train step of each configuration of phase 15
         sym = "s2a_" + r["name"]
+        if sym in pan:  # and a serving batch behind the PAN neck (phase 20b)
+            r["pan_launches"] = pan[sym]
+        if f"int8 {sym}" in pan:  # the int8 PAN's (phase 20c), with its time a batch
+            r["pan_launches"] = pan[f"int8 {sym}"]
+            part = pan["conv" if "conv" in sym else "quantize"]
+            r["pan_ms"], r["pan_bound_ms"] = part["ms"], part["bound_ms"]
         if sym in option_launches["default"]:
             r["option_launches"] = {name: per[sym] for name, per in option_launches.items()}
         if sym in dp_launches:  # and a data-parallel step's, on rank 0 (phase 16a)

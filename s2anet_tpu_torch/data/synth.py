@@ -46,16 +46,19 @@ def write_png(path, rgb: np.ndarray, level: int = 1, filters=0) -> None:
     ``filters``: the PNG row filter (0 None, 1 Sub, 2 Up, 3 Average, 4
     Paeth) of every row, or a sequence of one a row."""
     h, w, _ = rgb.shape
-    x = np.ascontiguousarray(rgb).reshape(h, w * 3).astype(np.int16)
-    left = np.pad(x, ((0, 0), (3, 0)))[:, :-3]
-    up = np.pad(x, ((1, 0), (0, 0)))[:-1]
-    up_left = np.pad(up, ((0, 0), (3, 0)))[:, :-3]
-    p = left + up - up_left
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
-    preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
     types = np.broadcast_to(np.asarray(filters, np.int64), (h,))
-    rows = ((x - preds[types, np.arange(h)]) & 0xFF).astype(np.uint8)
+    if types.any():
+        x = np.ascontiguousarray(rgb).reshape(h, w * 3).astype(np.int16)
+        left = np.pad(x, ((0, 0), (3, 0)))[:, :-3]
+        up = np.pad(x, ((1, 0), (0, 0)))[:-1]
+        up_left = np.pad(up, ((0, 0), (3, 0)))[:, :-3]
+        p = left + up - up_left
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+        preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+        rows = ((x - preds[types, np.arange(h)]) & 0xFF).astype(np.uint8)
+    else:  # filter None on every row: the bytes as they are
+        rows = np.ascontiguousarray(rgb, np.uint8).reshape(h, w * 3)
     raw = np.concatenate([types.astype(np.uint8)[:, None], rows], 1)
 
     def chunk(tag, data):

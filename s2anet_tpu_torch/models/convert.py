@@ -3,7 +3,9 @@
 The inverse of ``s2anet_tpu/models/torch_import.py::convert_reference_s2anet``:
 it maps the JAX ``{"params", "batch_stats"}`` tree (nested dicts of arrays,
 BatchNorms unfolded) to the reference torch key layout that the port's
-modules use, transposing conv kernels HWIO -> OIHW. ``or_weight``
+modules use, transposing conv kernels HWIO -> OIHW; a ``PAN`` neck's tree (its FPN
+under ``fpn``, then ``pan_down_i`` and ``pan_out_i``) maps to the port
+``PAN``'s keys (:func:`neck_state_dict_from_jax`). ``or_weight``
 ``[Cout/8, Cin, 1, 3, 3]`` is already in torch layout and is copied as it is;
 a head built with ``with_orconv=False`` has a plain ``or_conv`` conv
 (kernel and bias) instead, which becomes ``or_conv.weight``/``bias`` the
@@ -72,17 +74,27 @@ def state_dict_from_jax(variables, arch: str = "resnet50") -> Dict[str, torch.Te
                 bn(f"{dst}.downsample.1", bp[src]["downsample_bn"],
                    bs[src]["downsample_bn"])
 
-    neck = params["neck"]
-    i = 0
-    while f"lateral_{i}" in neck:
-        conv(f"neck.lateral_convs.{i}", neck[f"lateral_{i}"])
-        i += 1
-    i = 0
-    while f"fpn_{i}" in neck:
-        conv(f"neck.fpn_convs.{i}", neck[f"fpn_{i}"])
-        i += 1
-
+    sd.update(neck_state_dict_from_jax(params["neck"], prefix="neck."))
     sd.update(head_state_dict_from_jax(params["head"], prefix="head."))
+    return sd
+
+
+def neck_state_dict_from_jax(np_, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``FPN`` params (``lateral_i``, ``fpn_i``) or ``PAN`` params (an
+    ``fpn`` subtree, ``pan_down_i``, ``pan_out_i``) -> the port neck's
+    ``state_dict`` keys."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "fpn" in np_:  # a PAN
+        sd.update(neck_state_dict_from_jax(np_["fpn"], prefix + "fpn."))
+        names = (("pan_down", "pan_down_convs"), ("pan_out", "pan_out_convs"))
+    else:
+        names = (("lateral", "lateral_convs"), ("fpn", "fpn_convs"))
+    for src, dst in names:
+        i = 0
+        while f"{src}_{i}" in np_:
+            sd[f"{prefix}{dst}.{i}.weight"] = _oihw(np_[f"{src}_{i}"]["kernel"])
+            sd[f"{prefix}{dst}.{i}.bias"] = _t(np_[f"{src}_{i}"]["bias"])
+            i += 1
     return sd
 
 
@@ -147,9 +159,16 @@ def _jax_quant_path(name: str):
         stage = m.group(1) or "1"
         conv = "downsample_conv" if m.group(3) == "downsample.0" else m.group(3)
         return ("backbone", f"layer{stage}_{m.group(2)}", conv), "act_min", "act_max"
-    m = re.fullmatch(r"neck\.(lateral|fpn)_convs\.(\d+)", name)
+    # an FPN's convs, or a PAN's (its inner FPN under ``fpn``), in a
+    # detector's ``neck`` or alone
+    m = re.fullmatch(r"(neck\.)?(fpn\.)?(lateral|fpn)_convs\.(\d+)", name)
     if m:
-        return ("neck", f"{m.group(1)}_{m.group(2)}"), "act_min", "act_max"
+        outer = ("neck",) * bool(m.group(1)) + ("fpn",) * bool(m.group(2))
+        return outer + (f"{m.group(3)}_{m.group(4)}",), "act_min", "act_max"
+    m = re.fullmatch(r"(neck\.)?pan_(down|out)_convs\.(\d+)", name)
+    if m:
+        return (("neck",) * bool(m.group(1))
+                + (f"pan_{m.group(2)}_{m.group(3)}",)), "act_min", "act_max"
     m = re.fullmatch(r"head\.(\w+_ls)\.(\d+)\.0", name)
     if m:
         return ("head", m.group(1), f"conv{m.group(2)}"), "act_min", "act_max"

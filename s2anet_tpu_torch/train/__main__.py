@@ -12,8 +12,10 @@ A flag that is not typed leaves the config file's value
 incremented (runs/train/exp -> exp2) unless resuming. It runs
 :class:`.trainer.Trainer` and ends with a JSON line: epochs, steps, the
 last row's metrics, the epoch loop's ms/step (to the device's end,
-validation apart), the host's wait for the loader per step, the last
-validation's seconds and peak device memory.
+validation apart; with plots, the three first batches' mosaics drawn
+inside it), the host's wait for the loader per step, the last
+validation's seconds, the plots' host seconds (all, and those of the
+mosaics) and peak device memory.
 
     python -m s2anet_tpu_torch.train --config configs/synth_accept.yaml \
         --data-root DIR/train/images --val-root DIR/val/images --save-dir runs/accept
@@ -223,6 +225,7 @@ def run_training(opt, callbacks=None) -> dict:
         "ms_per_step": 1000 * t["loop"] / steps,
         "loader_wait_ms_per_step": 1000 * t["loader_wait"] / steps,
         "val_seconds": getattr(trainer, "val_seconds", None),
+        "plots_seconds": t["plots"], "batch_plots_seconds": t["batch_plots"],
         "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None,
         "device": str(device), "ranks": trainer.num_processes,
     }

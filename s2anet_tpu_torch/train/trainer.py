@@ -41,7 +41,16 @@ the deploy weights; the others wait for its fitness at a broadcast, the
 epoch's barrier. The epoch's loss items are the global batch's. Resume
 loads the same file on every rank.
 
-Not ported: the plots (they need matplotlib).
+**Plots** (``train.plots``, on by default; ``--noplots``), rank 0 only, as
+the JAX trainer draws them (:mod:`..utils.plots`, PNG without matplotlib):
+``labels.png`` before the first epoch, ``train_batch{0,1,2}.png`` for the
+first three batches of the run's first epoch (a resumed run draws them
+again), ``pr_curves.png`` when validation saves its results, and
+``results.png`` at the end. A batch's images and boxes are copied before
+its pinned slot goes back to the loader, and drawn once its step is
+enqueued, so the device runs the step while the host draws. The plots'
+host seconds are ``timing["plots"]`` (``timing["batch_plots"]`` of them
+inside the epoch loop's time).
 """
 
 from __future__ import annotations
@@ -58,7 +67,9 @@ from ..data.dota import BatchLoader, DotaDataset
 from ..eval.runner import BatchPipeline, evaluate_on_chips
 from ..models.detector import S2ANet
 from ..models.head import compute_s2anet_loss, s2anet_get_bboxes
+from ..ops.rbox import poly_to_rbox_np
 from ..parallel import mesh
+from ..utils import plots
 from ..utils.callbacks import Callbacks
 from ..utils.loggers import Loggers
 from .checkpoint import load_checkpoint, save_checkpoint, strip_for_deploy
@@ -140,9 +151,19 @@ class Trainer:
         else:
             self.loggers = _NullLoggers()
         self.model = S2ANet.from_config(cfg.model)
-        # seconds of the last train(): the host waiting for the loader, and
-        # the epochs' loops to the device's end (validation apart)
-        self.timing = {"loader_wait": 0.0, "loop": 0.0, "steps": 0}
+        # seconds of the last train(): the host waiting for the loader, the
+        # epochs' loops to the device's end (validation apart), the plots
+        self.timing = self._new_timing()
+
+    @staticmethod
+    def _new_timing() -> dict:
+        return {"loader_wait": 0.0, "loop": 0.0, "steps": 0, "plots": 0.0,
+                "batch_plots": 0.0}
+
+    @property
+    def plots(self) -> bool:
+        """This rank draws the training plots."""
+        return bool(self.cfg.train.plots) and self.is_main
 
     @property
     def accumulate(self) -> int:
@@ -199,14 +220,16 @@ class Trainer:
             start_epoch = self.optimizer.micro // steps_per_epoch
         if self.device.type == "cuda":
             torch.backends.cudnn.benchmark = True  # fixed shapes: autotune the convs
-        self.timing = {"loader_wait": 0.0, "loop": 0.0, "steps": 0}
+        self.timing = self._new_timing()
 
+        if self.plots:
+            self._timed_plot(self._plot_label_stats, loader.ds)
         self.callbacks.run("on_train_start")
         for epoch in range(start_epoch, cfg.train.epochs):
             self.callbacks.run("on_train_epoch_start")
             loader.set_epoch(epoch)
             t0 = time.time()
-            items = self._epoch(loader)
+            items = self._epoch(loader, plot_batches=self.plots and epoch == start_epoch)
             mean_items = (np.asarray(torch.stack(items).cpu(), np.float64).mean(0)
                           if items else np.zeros(4))
             dt = time.time() - t0
@@ -243,11 +266,44 @@ class Trainer:
             strip_for_deploy(self.ema, self.save_dir / "weights" / "deploy")
         self.callbacks.run("on_train_end")
         self.loggers.close()
+        if self.plots:
+            self._timed_plot(plots.plot_results_csv, self.save_dir / "results.csv",
+                             self.save_dir / "results.png")
         return self
 
-    def _epoch(self, loader: BatchLoader) -> list:
+    def _timed_plot(self, fn, *args) -> float:
+        """``fn(*args)``, its host seconds added to ``timing["plots"]``."""
+        t0 = time.perf_counter()
+        fn(*args)
+        dt = time.perf_counter() - t0
+        self.timing["plots"] += dt
+        return dt
+
+    def _plot_label_stats(self, train_ds: DotaDataset) -> None:
+        """``labels.png``: the train set's boxes (in the ``img_size``
+        frame) and classes; none drawn without labels."""
+        s = float(self.cfg.data.img_size)
+        labels = [lab for lab in train_ds.labels if len(lab)]
+        if not labels:
+            return
+        plots.plot_label_stats(np.concatenate([poly_to_rbox_np(lab[:, 1:] * s)
+                                               for lab in labels]),
+                               np.concatenate([lab[:, 0] for lab in labels]),
+                               self.save_dir / "labels.png",
+                               num_classes=self.cfg.model.num_classes)
+
+    def _plot_train_batch(self, imgs: np.ndarray, batch: dict, i: int) -> None:
+        """``train_batch{i}.png``: the batch's images (a copy) with its gt
+        boxes."""
+        targets = [(batch["gt_boxes"][k][batch["gt_mask"][k]],
+                    batch["gt_classes"][k][batch["gt_mask"][k]]) for k in range(len(imgs))]
+        plots.plot_images_grid(imgs, targets, self.save_dir / f"train_batch{i}.png",
+                               names=list(self.cfg.data.names))
+
+    def _epoch(self, loader: BatchLoader, plot_batches: bool = False) -> list:
         """One pass over the loader; the loss items ``[4]`` of each step,
-        on the device."""
+        on the device. With ``plot_batches`` the first three batches are
+        drawn, each after its step is enqueued."""
         cfg = self.cfg
         items = []
         with BatchPipeline(None, self.local_batch, cfg.data.img_size,
@@ -262,10 +318,15 @@ class Trainer:
                     break
                 i = len(items)
                 self.callbacks.run("on_train_batch_start")
+                # the slot goes back to the loader at stage(i): copy first
+                drawn = batch["imgs"].copy() if plot_batches and i < 3 else None
                 dev = to_device(batch, self.device, self.dtype, imgs=pipe.stage(i))
                 items.append(train_step(self.model, self.optimizer, self.ema, dev,
                                         cfg.model))
                 self.callbacks.run("on_train_batch_end")
+                if drawn is not None:
+                    self.timing["batch_plots"] += self._timed_plot(
+                        self._plot_train_batch, drawn, batch, i)
             loader.staging = None
         self.timing["steps"] += len(items)
         return items
@@ -285,6 +346,9 @@ class Trainer:
         out = evaluate_on_chips(
             step, cfg, dataset=self._val_dataset, with_loss=True,
             save_dir=self.save_dir if (save_results or cfg.eval.save_results) else None)
+        if (save_results or cfg.eval.save_results) and self.plots:
+            self._timed_plot(plots.plot_pr_curves, out["per_class"],
+                             self.save_dir / "pr_curves.png")
         self.callbacks.run("on_val_end")
         self.val_seconds = out["seconds"]["loop"]
         metrics = {"metrics/mAP_0.5": out["map50"], "metrics/precision": out["mp"],

@@ -173,7 +173,7 @@ def test_port_imports_no_jax():
             "utils/profiler.py", "tools/profile_report.py", "tools/quant_scope_bench.py",
             "tools/visualize.py"} <= {
         f"{f.parent.name}/{f.name}" for f in files}
-    banned = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "s2anet_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "matplotlib", "s2anet_tpu")
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in banned, f"{f}: imports {mod}"
