@@ -1,0 +1,2 @@
+"""Share of the profiled serving stretch with no kernel or copy on the device, in %."""
+from s2a_bench.readers import idle_pct as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""Device kernels a training step in the profiled stretch."""
+from s2a_bench.readers import launches as read  # noqa: F401
