@@ -57,6 +57,7 @@ from ..data.merge import merge_chip_detections
 from ..data.split import parse_dota_label
 from ..ops.polyiou import rbox_vertices_np
 from ..ops.quant import parse_scope
+from ..utils.profiler import span
 from .voc_eval import evaluate_detections
 
 
@@ -155,6 +156,12 @@ class BatchPipeline:
     batches alone (:meth:`stage`; ``step`` None, ``device`` given). Use it
     as a context manager: leaving it releases any loader thread still
     waiting.
+
+    Under a profiler the host's parts are the spans
+    ``s2anet.pipeline.wait_loader`` (the next ``(b, meta)``),
+    ``s2anet.pipeline.stage`` (the slot's copy to the device),
+    ``s2anet.pipeline.copy_out`` (the outputs into the pinned host buffers)
+    and ``s2anet.pipeline.wait_device`` (a batch's outputs on the host).
     """
 
     def __init__(self, step, batch_size: int, img_size: int, n: int = PREFETCH + 2,
@@ -209,20 +216,21 @@ class BatchPipeline:
         to the loader. On a CUDA device the copy runs on the side stream and
         the compute stream waits for it; elsewhere it is a copy."""
         s = i % self.n
-        src = self._view(self.bufs[s], s)
-        if not self.cuda:
-            x = src.clone()
-            self._release(i)
+        with span("s2anet.pipeline.stage"):
+            src = self._view(self.bufs[s], s)
+            if not self.cuda:
+                x = src.clone()
+                self._release(i)
+                return x
+            compute = torch.cuda.current_stream(self.device)
+            copied = torch.cuda.Event()
+            with torch.cuda.stream(self.stream):
+                x = src.to(self.device, non_blocking=True)
+                copied.record(self.stream)
+            compute.wait_event(copied)
+            x.record_stream(compute)  # x is freed only after the compute stream used it
+            self._release(i, copied)
             return x
-        compute = torch.cuda.current_stream(self.device)
-        copied = torch.cuda.Event()
-        with torch.cuda.stream(self.stream):
-            x = src.to(self.device, non_blocking=True)
-            copied.record(self.stream)
-        compute.wait_event(copied)
-        x.record_stream(compute)  # x is freed only after the compute stream used it
-        self._release(i, copied)
-        return x
 
     def _submit(self, i: int, meta):
         """Run the step on slot ``i % n``; returns a handle for :meth:`_fetch`."""
@@ -232,14 +240,15 @@ class BatchPipeline:
             self._release(i)
             return out
         outs = self.fn(self.stage(i), *extra)
-        if self._host[i % 2] is None:
-            self._host[i % 2] = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                                 for t in outs]
-        host = self._host[i % 2]
-        for h, t in zip(host, outs):
-            h.copy_(t, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        with span("s2anet.pipeline.copy_out"):
+            if self._host[i % 2] is None:
+                self._host[i % 2] = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                                     for t in outs]
+            host = self._host[i % 2]
+            for h, t in zip(host, outs):
+                h.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         return host, done
 
     def _fetch(self, handle, b: int, meta, seconds):
@@ -247,14 +256,13 @@ class BatchPipeline:
         submitted batch, the detections cut to its ``b`` real rows, as NumPy
         arrays (on a CUDA device, views of pinned buffers that batch i + 2
         overwrites)."""
-        t0 = time.perf_counter()
-        if self.cuda:
-            host, done = handle
-            done.synchronize()
-            handle = [h.numpy() for h in host]
-        outs = tuple(np.asarray(a)[:b] for a in handle[:3]) + tuple(
-            np.asarray(a) for a in handle[3:])
-        seconds["device_wait"] += time.perf_counter() - t0
+        with span("s2anet.pipeline.wait_device", seconds, "device_wait"):
+            if self.cuda:
+                host, done = handle
+                done.synchronize()
+                handle = [h.numpy() for h in host]
+            outs = tuple(np.asarray(a)[:b] for a in handle[:3]) + tuple(
+                np.asarray(a) for a in handle[3:])
         return outs, b, meta
 
     def run(self, batches, seconds: Dict[str, float]):
@@ -264,14 +272,17 @@ class BatchPipeline:
         ``seconds`` gathers the host's waits for ``batches``
         (``loader_wait``) and for the device's outputs (``device_wait``)."""
         pending = None
-        t0 = time.perf_counter()
-        for i, (b, meta) in enumerate(batches):
-            seconds["loader_wait"] += time.perf_counter() - t0
+        batches = iter(batches)
+        for i in itertools.count():
+            with span("s2anet.pipeline.wait_loader", seconds, "loader_wait"):
+                item = next(batches, None)
+            if item is None:
+                break
+            b, meta = item
             handle = self._submit(i, meta)
             if pending is not None:
                 yield self._fetch(*pending, seconds)  # batch i-1, while batch i runs
             pending = (handle, b, meta)
-            t0 = time.perf_counter()
         if pending is not None:
             yield self._fetch(*pending, seconds)
 
@@ -399,27 +410,26 @@ def evaluate_on_chips(step, cfg, dataset: Optional[DotaDataset] = None,
     with pipeline:
         for outs, b, batch in pipeline.run(batches(), seconds):
             # post-processing of batch i-1 while the device runs batch i
-            t0 = time.perf_counter()
-            det_boxes, det_labels, det_valid = outs[:3]
-            if with_loss:  # running mean weighted by the real images
-                mean_loss += (outs[3] - mean_loss) * (b / (n_imgs + b))
-            n_imgs += b
-            for k in range(b):
-                chip_name = Path(batch["paths"][k]).stem
-                boxes_k = det_boxes[k].copy()
-                h0, w0 = batch["orig_shapes"][k]
-                th, tw = batch["img_shapes"][k]
-                if (h0, w0) != (th, tw):
-                    # undo the letterbox; out-of-frame detections stay as they are
-                    ratio = min(th / h0, tw / w0)
-                    pad = ((tw - w0 * ratio) / 2, (th - h0 * ratio) / 2)
-                    boxes_k[:, :5] = unletterbox_rboxes(boxes_k[:, :5], ratio, pad)
-                polys, scores = detections_to_polys(boxes_k, det_valid[k])
-                labels = det_labels[k][det_valid[k]]
-                chip_dets[chip_name] = [(int(cid), float(sc), poly)
-                                        for cid, sc, poly in zip(labels, scores, polys)]
-                chip_dims[chip_name] = (h0, w0)
-            seconds["post"] += time.perf_counter() - t0
+            with span("s2anet.eval.post", seconds, "post"):
+                det_boxes, det_labels, det_valid = outs[:3]
+                if with_loss:  # running mean weighted by the real images
+                    mean_loss += (outs[3] - mean_loss) * (b / (n_imgs + b))
+                n_imgs += b
+                for k in range(b):
+                    chip_name = Path(batch["paths"][k]).stem
+                    boxes_k = det_boxes[k].copy()
+                    h0, w0 = batch["orig_shapes"][k]
+                    th, tw = batch["img_shapes"][k]
+                    if (h0, w0) != (th, tw):
+                        # undo the letterbox; out-of-frame detections stay as they are
+                        ratio = min(th / h0, tw / w0)
+                        pad = ((tw - w0 * ratio) / 2, (th - h0 * ratio) / 2)
+                        boxes_k[:, :5] = unletterbox_rboxes(boxes_k[:, :5], ratio, pad)
+                    polys, scores = detections_to_polys(boxes_k, det_valid[k])
+                    labels = det_labels[k][det_valid[k]]
+                    chip_dets[chip_name] = [(int(cid), float(sc), poly)
+                                            for cid, sc, poly in zip(labels, scores, polys)]
+                    chip_dims[chip_name] = (h0, w0)
     t_infer = time.perf_counter() - t_wall0
 
     out = score_detections(chip_dets, cfg, dataset, chip_dims, save_dir)

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.quant import QUANT_MODES, QUANT_SCOPE_DEFAULT, parse_scope, quant_modules
+from ..utils.profiler import span
 from .conv import quantizable
 from .fpn import FPN
 from .head import S2ANetHead
@@ -50,7 +51,15 @@ class S2ANet(nn.Module):
                    with_orconv=mc.with_orconv, bn_stats_images=mc.bn_stats_images)
 
     def forward(self, imgs: torch.Tensor):
-        return self.head(self.neck(self.backbone(imgs)))
+        """Raw head outputs; under a profiler the span ``s2anet.forward``,
+        holding ``s2anet.backbone``, ``s2anet.neck`` and ``s2anet.head``."""
+        with span("s2anet.forward"):
+            with span("s2anet.backbone"):
+                feats = self.backbone(imgs)
+            with span("s2anet.neck"):
+                feats = self.neck(feats)
+            with span("s2anet.head"):
+                return self.head(feats)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "S2ANet":

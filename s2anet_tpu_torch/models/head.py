@@ -60,6 +60,7 @@ from ..ops.quant import QuantMixin, call_conv
 from ..ops.rbox import rboxes_decode, rboxes_encode
 from ..ops.topk import top_k
 from ..parallel import mesh, rows
+from ..utils.profiler import span
 from .anchors import grid_anchors_on
 from .assigner import assign_labels
 from .conv import Conv2d
@@ -351,8 +352,9 @@ def compute_s2anet_loss(outputs, gt_boxes, gt_classes, gt_mask,
     b = gt_boxes.shape[0]
     init_all = torch.cat(outputs["init_anchors"], 0)
     refine_all = torch.cat(outputs["refine_anchors"], 1).detach()
-    fam_assign = assign_labels(init_all, gt_boxes, gt_mask, imgs_size)
-    odm_assign = assign_labels(refine_all, gt_boxes, gt_mask, imgs_size)
+    with span("s2anet.train.assign"):
+        fam_assign = assign_labels(init_all, gt_boxes, gt_mask, imgs_size)
+        odm_assign = assign_labels(refine_all, gt_boxes, gt_mask, imgs_size)
     if distributed:
         counts = torch.stack([(fam_assign >= 0).sum(), (odm_assign >= 0).sum()])
         fam_total_pos, odm_total_pos = mesh.all_reduce_sum(counts).clamp_min(
@@ -422,13 +424,17 @@ def s2anet_get_bboxes(outputs, score_thr: float = 0.05, iou_thr: float = 0.5,
                       max_before_nms_per_level: int = 2000,
                       max_per_img: int = 2000, pre_nms_cap: int = 4096):
     """Decode ODM predictions (:func:`decode_levels`) and run multiclass
-    rotated NMS, batched.
+    rotated NMS, batched. Under a profiler the span ``s2anet.post``, holding
+    ``s2anet.decode`` and ``s2anet.nms``.
 
     Returns:
       ``det_boxes [B, max_per_img, 6]``, ``det_labels [B, max_per_img]``,
       ``det_valid [B, max_per_img]``.
     """
-    boxes, scores = decode_levels(outputs, max_before_nms_per_level)
-    return multiclass_nms_rotated(boxes, scores, score_thr, iou_thr,
-                                  max_per_img=max_per_img,
-                                  pre_nms_cap=pre_nms_cap)
+    with span("s2anet.post"):
+        with span("s2anet.decode"):
+            boxes, scores = decode_levels(outputs, max_before_nms_per_level)
+        with span("s2anet.nms"):
+            return multiclass_nms_rotated(boxes, scores, score_thr, iou_thr,
+                                          max_per_img=max_per_img,
+                                          pre_nms_cap=pre_nms_cap)

@@ -95,6 +95,7 @@ from .parallel import mesh
 from .parallel.spatial import padded_size, spatial_forward
 from .train.step import scale_images
 from .utils.plots import draw_rboxes
+from .utils.profiler import span
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 IMG_EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp"}  # predict.py's
@@ -201,9 +202,11 @@ class S2ANetPredictor:
     @torch.no_grad()
     def predict(self, imgs, **overrides):
         """``(det_boxes [B,K,6], det_labels [B,K], det_valid [B,K])``;
-        ``overrides`` replace decode/NMS settings (e.g. ``score_thr``)."""
-        out = self.forward(self.to_input(imgs))
-        return s2anet_get_bboxes(out, **{**self.post_kwargs(), **overrides})
+        ``overrides`` replace decode/NMS settings (e.g. ``score_thr``).
+        Under a profiler the call is the span ``s2anet.predict``."""
+        with span("s2anet.predict"):
+            out = self.forward(self.to_input(imgs))
+            return s2anet_get_bboxes(out, **{**self.post_kwargs(), **overrides})
 
 
 def _list_images(source: str, exts):
@@ -347,7 +350,9 @@ def serve_spatial(predictor, inputs, timing=None):
     input and stages its own rows of the padded image (zeros past the
     input); rank 0 decodes. ``timing`` (a dict), when given, gathers the
     seconds of the model (rows staged, the forward, the outputs gathered,
-    to the device's end) and of the decode (top-k, NMS, polygons)."""
+    to the device's end) and of the decode (top-k, NMS, polygons), under a
+    profiler the spans ``s2anet.spatial.model`` and
+    ``s2anet.spatial.decode``."""
     timing = {} if timing is None else timing
     timing.setdefault("model", 0.0)
     timing.setdefault("decode", 0.0)
@@ -360,21 +365,19 @@ def serve_spatial(predictor, inputs, timing=None):
         lo, hi = rank * part, min((rank + 1) * part, h0)
         rows_u8 = np.zeros((1, part, wp, 3), np.uint8)
         rows_u8[0, :max(hi - lo, 0), :w0] = img[lo:hi]
-        t0 = time.perf_counter()
-        out = spatial_forward(predictor.forward, predictor.to_input(rows_u8))
-        if cuda:
-            torch.cuda.synchronize(predictor.device)
-        t1 = time.perf_counter()
-        timing["model"] += t1 - t0
+        with span("s2anet.spatial.model", timing, "model"):
+            out = spatial_forward(predictor.forward, predictor.to_input(rows_u8))
+            if cuda:
+                torch.cuda.synchronize(predictor.device)
         if rank != 0:
             yield name, None
             continue
-        det_boxes, det_labels, det_valid = (
-            t[0].cpu().numpy() for t in s2anet_get_bboxes(out, **predictor.post_kwargs()))
-        polys, scores = detections_to_polys(det_boxes, det_valid)
-        dets = [(int(c), float(sc), p)
-                for c, sc, p in zip(det_labels[det_valid], scores, polys)]
-        timing["decode"] += time.perf_counter() - t1
+        with span("s2anet.spatial.decode", timing, "decode"):
+            det_boxes, det_labels, det_valid = (
+                t[0].cpu().numpy() for t in s2anet_get_bboxes(out, **predictor.post_kwargs()))
+            polys, scores = detections_to_polys(det_boxes, det_valid)
+            dets = [(int(c), float(sc), p)
+                    for c, sc, p in zip(det_labels[det_valid], scores, polys)]
         yield name, dets
 
 

@@ -14,7 +14,14 @@ memcpys and memsets) by kernel name, and prints
   cuBLAS / CUTLASS convolutions and GEMMs, reductions, copies and memsets,
   elementwise kernels, and the rest (sorts, scans, gathers);
 * the top N kernels;
-* the elementwise group by kernel name.
+* the elementwise group by kernel name;
+* the port's spans (``s2anet.*``, ``utils/profiler.py::span``), each with
+  its host ms a step, the blocking runtime calls a step inside it
+  (``cudaStreamSynchronize``, ``cudaEventSynchronize``,
+  ``cudaDeviceSynchronize``, ``cudaMemcpy``) and the device's idle ms a
+  step whose gap falls inside it (at the gap's middle; the trace's stretch
+  runs from its first host range or device event to its last device
+  event). A span's numbers hold those of the spans inside it.
 
 Times are the trace's own (microseconds on the device's clock); nothing is
 measured here.
@@ -52,6 +59,9 @@ _CONV_KEYS = ("conv", "gemm", "xmma", "cutlass", "cudnn", "wgrad", "dgrad", "imp
 _COPY_KEYS = ("memcpy", "memset", "copy", "catarray", "nchwtonhwc", "nhwctonchw",
               "transpose")
 _STEP_RE = re.compile(r"^ProfilerStep#\d+$")
+SPAN_PREFIX = "s2anet."
+BLOCKING = frozenset({"cudaStreamSynchronize", "cudaEventSynchronize",
+                      "cudaDeviceSynchronize", "cudaMemcpy"})
 
 
 def newest_trace(trace_dir) -> Path:
@@ -92,25 +102,60 @@ def category(name: str, cat: str = "kernel") -> str:
     return OTHER
 
 
+def idle_gaps(device: list, start: float) -> list:
+    """``[(t0, t1)]`` of the device's idle stretches between ``start`` and
+    its last event's end; ``device`` holds ``(t0, t1)`` of its events."""
+    gaps, last = [], start
+    for t0, t1 in sorted(device):
+        if t0 > last:
+            gaps.append((last, t0))
+        last = max(last, t1)
+    return gaps
+
+
+def span_table(spans: list, syncs: list, gaps: list) -> dict:
+    """``{name: {"host_ms", "syncs", "idle_ms"}}`` (totals) of the ranges
+    ``spans`` (``(name, tid, t0, t1)``): their host time, the blocking
+    calls ``syncs`` (``(tid, t0, t1)``) of their thread inside them, and
+    the idle ``gaps`` whose middle lies inside them."""
+    out = {}
+    for name, tid, t0, t1 in spans:
+        row = out.setdefault(name, {"host_ms": 0.0, "syncs": 0, "idle_ms": 0.0})
+        row["host_ms"] += (t1 - t0) / 1000
+        row["syncs"] += sum(s_tid == tid and t0 <= a and b <= t1 for s_tid, a, b in syncs)
+        row["idle_ms"] += sum(b - a for a, b in gaps if t0 <= (a + b) / 2 <= t1) / 1000
+    return out
+
+
 def report(trace, steps: int = 0) -> dict:
     """Device time of the trace at ``trace`` (a file or a directory):
     ``{"path", "total_ms", "steps", "kernels": {name: (ms, launches,
-    category)}, "categories": {category: ms}}``. ``steps`` 0: the number
-    of the trace's step markers (1 if it has none)."""
+    category)}, "categories": {category: ms}, "spans": {name: {"host_ms",
+    "syncs", "idle_ms"}}}`` (totals; see :func:`span_table`). ``steps`` 0:
+    the number of the trace's step markers (1 if it has none)."""
     path = newest_trace(trace)
     per_name: dict = {}
-    markers, op_starts = [], []
+    markers, op_starts, spans, syncs, device, starts = [], [], [], [], [], []
     for ev in load_events(path):
         if ev.get("ph") != "X":
             continue
         cat = str(ev.get("cat", "")).lower()
         name = str(ev.get("name", ""))
-        if cat == "user_annotation" and _STEP_RE.match(name):
-            markers.append((float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0))))
+        t0 = float(ev["ts"])
+        t1 = t0 + float(ev.get("dur", 0))
+        if cat == "user_annotation":
+            starts.append(t0)
+            if _STEP_RE.match(name):
+                markers.append((t0, t1))
+            if name.startswith(SPAN_PREFIX):
+                spans.append((name, ev.get("tid"), t0, t1))
+        if cat == "cuda_runtime" and name in BLOCKING:
+            syncs.append((ev.get("tid"), t0, t1))
         if cat == "cpu_op":
-            op_starts.append(float(ev["ts"]))
+            op_starts.append(t0)
         if cat not in DEVICE_CATS:
             continue
+        device.append((t0, t1))
         ms, n, _ = per_name.get(name, (0.0, 0, None))
         per_name[name] = (ms + float(ev.get("dur", 0)) / 1000, n + 1, category(name, cat))
     cats = collections.Counter()
@@ -119,9 +164,11 @@ def report(trace, steps: int = 0) -> dict:
     # a step is a marker that holds an operator: prof.step() after the
     # last step opens one more marker, empty
     ran = sum(any(t0 <= t <= t1 for t in op_starts) for t0, t1 in markers)
+    gaps = idle_gaps(device, min(starts + [t for t, _ in device])) if device else []
     return {"path": str(path), "total_ms": sum(cats.values()),
             "steps": steps or ran or 1, "kernels": per_name,
-            "categories": {c: cats[c] for c in CATEGORIES}}
+            "categories": {c: cats[c] for c in CATEGORIES},
+            "spans": span_table(spans, syncs, gaps)}
 
 
 def format_report(rep: dict, top: int = 25) -> str:
@@ -139,6 +186,10 @@ def format_report(rep: dict, top: int = 25) -> str:
     for name, (ms, n, c) in ranked:
         if c == ELEMENTWISE:
             lines.append(f"  {ms / steps:9.3f} {n / steps:7.1f}  {name[:120]}")
+    lines += ["", "spans (host ms/step, blocking calls/step, device idle ms/step):"]
+    for name, row in sorted(rep["spans"].items(), key=lambda kv: -kv[1]["host_ms"]):
+        lines.append(f"  {row['host_ms'] / steps:9.3f} {row['syncs'] / steps:7.1f} "
+                     f"{row['idle_ms'] / steps:9.3f}  {name}")
     return "\n".join(lines)
 
 

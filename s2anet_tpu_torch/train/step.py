@@ -3,11 +3,19 @@
 Counterpart of ``s2anet_tpu/parallel/step.py::make_train_step``: forward
 in train mode, assignment and loss, backward, clipping, SGD and the EMA
 (one micro-step under gradient accumulation: the EMA moves only when the
-optimizer updates). Nothing in the step waits for the device: the loss
+optimizer updates). The step waits for the device only where the head's
+ORConv copies its ARF gather index from pageable host memory, once a
+level (``ops/orn.py::rotate_arf``; a profiler counts five
+``cudaStreamSynchronize`` a step inside ``s2anet.head``): the loss
 normalisation stays on the device, and the one data-dependent choice of
 the JAX step (the gt tier of 64) is made on the host from the batch's
 numpy mask by :func:`to_device` (in a data-parallel group, per rank: it
 only drops padding columns).
+
+Under a profiler the feed is the span ``s2anet.train.feed`` and the step
+``s2anet.train.step``, holding ``s2anet.forward``, ``s2anet.train.loss``
+(with ``s2anet.train.assign``), ``s2anet.train.backward`` and
+``s2anet.train.update`` (with ``s2anet.train.ema``).
 
 In a process group of more than one rank (``parallel/mesh.py``) the batch
 is this rank's slice of the global batch; the BatchNorms and the loss
@@ -26,6 +34,7 @@ from ..config import ModelConfig
 from ..models.head import compute_s2anet_loss
 from ..parallel.mesh import world_size
 from ..parallel.step import sum_over_ranks
+from ..utils.profiler import span
 from .optim import Optimizer
 from .state import ModelEMA
 
@@ -58,23 +67,24 @@ def to_device(batch, device, dtype: torch.dtype, imgs: torch.Tensor = None):
     go to the device: the JAX step's ``lax.cond`` gt tier, decided here once
     on the host, so the step never syncs to decide it.
     """
-    g = batch["gt_mask"].shape[1]
-    k = GT_TIER if g > GT_TIER and batch["gt_mask"].sum(1).max() <= GT_TIER else g
-    if imgs is None:
-        imgs = torch.from_numpy(np.ascontiguousarray(batch["imgs"]))
-    imgs = imgs.to(device, non_blocking=True)
-    if imgs.dtype == torch.uint8:
-        imgs = scale_images(imgs, dtype)
-    else:
-        imgs = imgs.permute(0, 3, 1, 2).to(dtype=dtype).contiguous(
-            memory_format=torch.channels_last)
+    with span("s2anet.train.feed"):
+        g = batch["gt_mask"].shape[1]
+        k = GT_TIER if g > GT_TIER and batch["gt_mask"].sum(1).max() <= GT_TIER else g
+        if imgs is None:
+            imgs = torch.from_numpy(np.ascontiguousarray(batch["imgs"]))
+        imgs = imgs.to(device, non_blocking=True)
+        if imgs.dtype == torch.uint8:
+            imgs = scale_images(imgs, dtype)
+        else:
+            imgs = imgs.permute(0, 3, 1, 2).to(dtype=dtype).contiguous(
+                memory_format=torch.channels_last)
 
-    def put(key, np_dtype):
-        a = np.ascontiguousarray(batch[key][:, :k], np_dtype)
-        return torch.from_numpy(a).to(device, non_blocking=True)
+        def put(key, np_dtype):
+            a = np.ascontiguousarray(batch[key][:, :k], np_dtype)
+            return torch.from_numpy(a).to(device, non_blocking=True)
 
-    return {"imgs": imgs, "gt_boxes": put("gt_boxes", np.float32),
-            "gt_classes": put("gt_classes", np.int64), "gt_mask": put("gt_mask", bool)}
+        return {"imgs": imgs, "gt_boxes": put("gt_boxes", np.float32),
+                "gt_classes": put("gt_classes", np.int64), "gt_mask": put("gt_mask", bool)}
 
 
 def train_step(model: nn.Module, optimizer: Optimizer, ema: ModelEMA, batch,
@@ -83,21 +93,26 @@ def train_step(model: nn.Module, optimizer: Optimizer, ema: ModelEMA, batch,
     :func:`to_device`; returns the loss items ``[4]`` (fam_cls, fam_reg,
     odm_cls, odm_reg) on the device, without waiting for them (those of
     the global batch in a data-parallel group)."""
-    distributed = world_size() > 1
-    imgs = batch["imgs"]
-    out = model(imgs)
-    total, items = compute_s2anet_loss(
-        out, batch["gt_boxes"], batch["gt_classes"], batch["gt_mask"],
-        imgs_size=tuple(imgs.shape[-2:]), num_classes=cfg.num_classes,
-        fl_gamma=cfg.fl_gamma, fl_alpha=cfg.fl_alpha,
-        smooth_beta=cfg.smooth_beta, odm_balance=cfg.odm_balance,
-        reg_balance=cfg.reg_balance, fpn_balance=tuple(cfg.fpn_balance),
-        distributed=distributed)
-    optimizer.zero_grad()
-    total.backward()
-    if distributed:
-        items = sum_over_ranks(model, optimizer.params, items)
-    optimizer.step()
-    if optimizer.synced:
-        ema.update(model, optimizer.count)
-    return items.detach()
+    with span("s2anet.train.step"):
+        distributed = world_size() > 1
+        imgs = batch["imgs"]
+        out = model(imgs)
+        with span("s2anet.train.loss"):
+            total, items = compute_s2anet_loss(
+                out, batch["gt_boxes"], batch["gt_classes"], batch["gt_mask"],
+                imgs_size=tuple(imgs.shape[-2:]), num_classes=cfg.num_classes,
+                fl_gamma=cfg.fl_gamma, fl_alpha=cfg.fl_alpha,
+                smooth_beta=cfg.smooth_beta, odm_balance=cfg.odm_balance,
+                reg_balance=cfg.reg_balance, fpn_balance=tuple(cfg.fpn_balance),
+                distributed=distributed)
+        with span("s2anet.train.backward"):
+            optimizer.zero_grad()
+            total.backward()
+            if distributed:  # the gradient summed over the ranks
+                items = sum_over_ranks(model, optimizer.params, items)
+        with span("s2anet.train.update"):
+            optimizer.step()
+            if optimizer.synced:
+                with span("s2anet.train.ema"):
+                    ema.update(model, optimizer.count)
+        return items.detach()

@@ -72,6 +72,7 @@ from ..parallel import mesh
 from ..utils import plots
 from ..utils.callbacks import Callbacks
 from ..utils.loggers import Loggers
+from ..utils.profiler import span
 from .checkpoint import load_checkpoint, save_checkpoint, strip_for_deploy
 from .optim import Optimizer, freeze_stages
 from .pretrained import load_pretrained_backbone
@@ -311,9 +312,8 @@ class Trainer:
             loader.staging = pipe
             batches = iter(loader)
             while True:
-                t0 = time.perf_counter()
-                batch = next(batches, None)
-                self.timing["loader_wait"] += time.perf_counter() - t0
+                with span("s2anet.train.wait_loader", self.timing, "loader_wait"):
+                    batch = next(batches, None)
                 if batch is None:
                     break
                 i = len(items)

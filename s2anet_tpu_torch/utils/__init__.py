@@ -1,4 +1,4 @@
-"""Training utilities (callback hooks, metric loggers and ``Profile``, the
-training plots over the raster figures of ``figure``) and the measurement
-ones: ``flops`` (analytic FLOPs of an exported graph, the card's matmul
-peak) and ``profiler`` (Chrome traces, timed ops, stage timers)."""
+"""Training utilities (callback hooks, metric loggers, the training plots
+over the raster figures of ``figure``) and the measurement ones: ``flops``
+(analytic FLOPs of an exported graph, the card's matmul peak) and
+``profiler`` (the spans at the layer boundaries, Chrome traces)."""

@@ -6,14 +6,12 @@ keys the file is rewritten under the widened header, earlier rows keeping
 empty cells), TensorBoard scalars where the ``tensorboard`` package is
 installed, and W&B where a project is configured and the ``wandb`` package
 is installed. Neither is needed: the machine with the card has neither.
-:class:`Profile` accumulates wall-clock seconds over timed sections.
 """
 
 from __future__ import annotations
 
 import csv
 import importlib.util
-import time
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -79,25 +77,3 @@ class Loggers:
         if self.wandb is not None:
             self.wandb.finish()
 
-
-class Profile:
-    """Wall-clock seconds of the sections it wraps (``with prof: ...``):
-    ``t`` in all, ``n`` sections, ``avg`` a section. Waiting for the device
-    is the caller's business (``torch.cuda.synchronize()`` inside the
-    section)."""
-
-    def __init__(self):
-        self.t = 0.0
-        self.n = 0
-
-    def __enter__(self):
-        self._start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.t += time.perf_counter() - self._start
-        self.n += 1
-
-    @property
-    def avg(self) -> float:
-        return self.t / max(self.n, 1)

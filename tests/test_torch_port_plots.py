@@ -1,7 +1,7 @@
 """The training plots of the port (``s2anet_tpu_torch/utils/plots.py``,
 drawn without cv2 or matplotlib) against the JAX package's
-``s2anet_tpu/utils/plots.py``, their wiring in the port's ``Trainer``, and
-``utils/loggers.py::Profile``, on the CPU.
+``s2anet_tpu/utils/plots.py`` and their wiring in the port's ``Trainer``,
+on the CPU.
 
 * ``plot_images_grid``: the port's mosaic (uint8 RGB batch in) against the
   JAX one's (the same batch as float ``u * float32(1/255)``, which its
@@ -21,8 +21,6 @@ drawn without cv2 or matplotlib) against the JAX package's
 * A Trainer run (R-18, 64^2, 2 epochs) writes ``labels.png``,
   ``train_batch{0,1,2}.png``, ``pr_curves.png`` and ``results.png`` at
   their sizes and records the plots' seconds; ``--noplots`` writes none.
-* ``Profile``: ``t``, ``n`` and ``avg`` as the JAX one's over the same
-  timed sections (a patched clock).
 """
 
 import csv
@@ -37,7 +35,6 @@ matplotlib.use("Agg")
 
 from matplotlib.axes import Axes  # noqa: E402
 
-from s2anet_tpu.utils import loggers as jax_loggers  # noqa: E402
 from s2anet_tpu.utils import plots as jax_plots  # noqa: E402
 from s2anet_tpu_torch.data import synth  # noqa: E402
 from s2anet_tpu_torch.data.image import imread  # noqa: E402
@@ -283,16 +280,3 @@ def test_trainer_writes_the_plots(tmp_path):
     assert not any((tmp_path / "quiet" / name).exists() for name in PLOTS)
     assert quiet["plots_seconds"] == 0.0
 
-
-def test_profile_matches_jax():
-    """Three timed sections on a patched clock (enter / exit at 0 / 0.25,
-    1.25 / 1.75, 3.75 / 3.875 s)."""
-    got, want = loggers.Profile(), jax_loggers.Profile()
-    for prof in (want, got):
-        stamps = iter([0.0, 0.25, 1.25, 1.75, 3.75, 3.875])
-        with mock.patch("time.perf_counter", lambda: next(stamps)):
-            for _ in range(3):
-                with prof:
-                    pass
-    assert (got.t, got.n, got.avg) == (want.t, want.n, want.avg) == (0.875, 3, 0.875 / 3)
-    assert loggers.Profile().avg == jax_loggers.Profile().avg == 0.0

@@ -1,18 +1,19 @@
 """The profiler tools: ``utils/profiler.py`` and ``tools/profile_report.py``.
 
 * The report's totals, categories, steps and listings on a Chrome trace the
-  test writes, exactly.
+  test writes, exactly; its table of the port's spans (host ms, blocking
+  calls of the span's thread inside it, device idle whose gap falls inside
+  it) on the same trace.
 * A real CPU ``torch.profiler`` trace from ``utils/profiler.trace``: found,
   parsed, its steps counted from the step markers.
 * The report's list of hand kernels is the ``__global__`` functions of
   ``csrc/*.cu``.
-* ``StepTimer``'s smoothing; the timers that need a card refuse the CPU.
+* ``measure_matmul_peak`` refuses the CPU.
 """
 
 import json
 import re
 from pathlib import Path
-from unittest import mock
 
 import pytest
 import torch
@@ -53,6 +54,20 @@ def _write_trace(path: Path, steps: int = 2):
         for _ in range(n):
             events.append({"ph": "X", "cat": cat, "name": name, "ts": t, "dur": us / n})
             t += us / n
+    # the port's spans on thread 1: the device is idle from 0 to the first
+    # kernel at 2 * steps + 2 ms, a gap whose middle lies in wait_device
+    mid = (2000.0 * (steps + 1)) / 2
+    for name, cat, ts, dur, tid in [
+            ("s2anet.predict", "user_annotation", 1, 998, 1),
+            ("s2anet.post", "user_annotation", 500, 400, 1),
+            ("cudaStreamSynchronize", "cuda_runtime", 600, 50, 1),  # inside post
+            ("cudaStreamSynchronize", "cuda_runtime", 610, 20, 2),  # another thread
+            ("cudaMemcpyAsync", "cuda_runtime", 700, 5, 1),  # does not block
+            ("s2anet.predict", "user_annotation", 2001, 998, 1),
+            ("cudaMemcpy", "cuda_runtime", 2100, 10, 1),  # inside predict only
+            ("cudaEventSynchronize", "cuda_runtime", 1500, 10, 1),  # in no span
+            ("s2anet.pipeline.wait_device", "user_annotation", mid - 500, 1000, 1)]:
+        events.append({"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "tid": tid})
     events.append({"ph": "i", "cat": "kernel", "name": "ignored instant", "ts": t})
     path.write_text(json.dumps({"traceEvents": events}))
 
@@ -76,8 +91,19 @@ def test_report_on_a_written_trace(tmp_path, capsys):
     assert got["steps"] == 2 and "3.859 ms of device time over 2 step(s) = 1.930 ms/step" in out
     top = out.split("top 3 kernels")[1].split("\n\n")[0].splitlines()[1:]
     assert len(top) == 3 and "sm90_xmma_fprop" in top[0] and "vectorized_elementwise" in top[1]
-    listed = out.split("elementwise by kernel name")[1].splitlines()[1:]
+    listed = out.split("elementwise by kernel name")[1].split("\n\n")[0].splitlines()[1:]
     assert [line.split()[:2] for line in listed] == [["0.300", "15.0"], ["0.100", "10.0"]]
+    # the spans: host ms, blocking calls and idle ms, totals and per step
+    assert rep["spans"] == {
+        "s2anet.predict": {"host_ms": pytest.approx(1.996), "syncs": 2, "idle_ms": 0.0},
+        "s2anet.post": {"host_ms": pytest.approx(0.4), "syncs": 1, "idle_ms": 0.0},
+        "s2anet.pipeline.wait_device": {"host_ms": pytest.approx(1.0), "syncs": 0,
+                                        "idle_ms": pytest.approx(6.0)}}
+    spans = out.split("spans (host ms/step")[1].splitlines()[1:]
+    assert [line.split() for line in spans] == [
+        ["0.998", "1.0", "0.000", "s2anet.predict"],
+        ["0.500", "0.0", "3.000", "s2anet.pipeline.wait_device"],
+        ["0.200", "0.5", "0.000", "s2anet.post"]]
 
 
 def test_report_on_a_real_cpu_trace(tmp_path):
@@ -106,18 +132,6 @@ def test_hand_kernels_are_the_csrc_kernels():
         assert pr.category(f"void {name}<1>(int)") == pr.HAND
 
 
-def test_step_timer_smooths():
-    timer = profiler.StepTimer(smooth=0.5)
-    clock = iter([0.0, 0.1, 1.0, 1.3, 2.0, 2.2])
-    with mock.patch.object(profiler.time, "perf_counter", lambda: next(clock)):
-        for _ in range(3):
-            with timer.stage("step"):
-                pass
-    # 0.1, then 0.5 * 0.1 + 0.5 * 0.3, then 0.5 * 0.2 + 0.5 * 0.2
-    assert timer.avg["step"] == pytest.approx(0.2)
-    assert timer.summary() == "step=200ms"
-
-
 def test_median_spread():
     assert profiler.median_spread([1.0, 2.0, 4.0]) == (2.0, 1.5)
 
@@ -125,7 +139,5 @@ def test_median_spread():
 def test_card_timers_refuse_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        profiler.profile_op(lambda: None)
     with pytest.raises(RuntimeError, match="CUDA"):
         flops.measure_matmul_peak()
